@@ -1,0 +1,109 @@
+"""Shared configuration and state types of the sketch family.
+
+``SketchConfig`` is a frozen (hashable) dataclass, derived exactly as the
+JAX package derives it, so both packages draw the same hash family from the
+same seed. States are NamedTuples of tensors; their dtypes follow the JAX
+package (int8 registers, int32 histograms, float32 estimates).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point places its state on.
+
+    A CUDA device is refused when no GPU is present: the port never moves
+    to the CPU on its own — the caller asks for ``device="cpu"``.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch path"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}; expected 'cuda' or 'cpu'")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchConfig:
+    """Configuration shared by QSketch / QSketch-Dyn and their keyed forms.
+
+    Attributes:
+      m: number of registers.
+      b: register width in bits: r_min = -2^(b-1)+1, r_max = 2^(b-1)-1.
+      seed: base salt; each hash role derives its own sub-salt from it.
+    """
+
+    m: int = 256
+    b: int = 8
+    seed: int = 0x5EED
+
+    def __post_init__(self):
+        if self.m < 3:
+            raise ValueError("m >= 3 required (estimator variance needs m>=3)")
+        if not (2 <= self.b <= 8):
+            raise ValueError("register width b must be in [2, 8]")
+
+    @property
+    def r_min(self) -> int:
+        """Smallest register value (and the empty-register init): -2^(b-1)+1."""
+        return -(2 ** (self.b - 1)) + 1
+
+    @property
+    def r_max(self) -> int:
+        """Largest register value (truncation ceiling): 2^(b-1)-1."""
+        return 2 ** (self.b - 1) - 1
+
+    @property
+    def num_bins(self) -> int:
+        """Histogram bins: one per representable register value."""
+        return 2**self.b
+
+    @property
+    def top_bin(self) -> int:
+        """Index of the r_max bin: r_max - r_min = 2^b - 2."""
+        return self.r_max - self.r_min
+
+    @property
+    def salt_h(self) -> int:
+        """Derived salt of the register-value hash role h_j."""
+        return (self.seed * 0x9E3779B1 + 1) & 0xFFFFFFFF
+
+    @property
+    def salt_g(self) -> int:
+        """Derived salt of the register-choice hash role g."""
+        return (self.seed * 0x9E3779B1 + 2) & 0xFFFFFFFF
+
+    @property
+    def salt_perm(self) -> int:
+        """Derived salt of the permutation keys (FastGM/FastExp schedules)."""
+        return (self.seed * 0x9E3779B1 + 3) & 0xFFFFFFFF
+
+
+class QSketchState(NamedTuple):
+    """Registers of a QSketch."""
+
+    regs: torch.Tensor  # int8[m], initialized to r_min
+
+
+class DynState(NamedTuple):
+    """QSketch-Dyn state: registers + value histogram + running estimate."""
+
+    regs: torch.Tensor  # int8[m]
+    hist: torch.Tensor  # int32[2^b]; counts *touched* registers only
+    chat: torch.Tensor  # float32 scalar, running weighted-cardinality estimate
+
+
+class DynArrayState(NamedTuple):
+    """K independent QSketch-Dyn sketches as one state (core/dyn_array.py)."""
+
+    regs: torch.Tensor  # int8[K, m]
+    hists: torch.Tensor  # int32[K, 2^b]; per-key counts of *touched* registers
+    chats: torch.Tensor  # float32[K], running weighted-cardinality estimates

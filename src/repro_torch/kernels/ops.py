@@ -1,0 +1,129 @@
+"""Validated fronts of the four kernels on the main path.
+
+Each front takes the sketch configuration and the kernel's operands as the
+core modules hold them, checks them — every operand on one CPU or CUDA
+device, of the expected dtype and shape, contiguous — and raises on
+anything else, then calls the kernel's wrapper, which dispatches on the
+device: the plain PyTorch version for CPU tensors, the CUDA kernel for CUDA
+tensors.
+
+Unlike the JAX package's fronts, these stop at the kernel boundary: the
+update tails (dedup, scatters, histogram moves) live in the core modules,
+which call the fronts, so core and kernels do not import each other in a
+circle.
+
+Launch counts: each kernel wrapper counts its own launches
+(``_build.Kernel.launches``); ``launch_counts`` reads them and
+``reset_launch_counts`` sets them to 0.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..core import estimators
+from ..core.types import SketchConfig
+from . import dyn_array_update, estimate, qdyn_qr, qsketch_update
+
+KERNELS = {
+    "qsketch_update": qsketch_update.KERNEL,
+    "qdyn_qr": qdyn_qr.KERNEL,
+    "dyn_array_update": dyn_array_update.KERNEL,
+    "estimate": estimate.KERNEL,
+}
+
+QR_FLOOR = 1e-12  # q_R guard; only reachable when a sketch is fully saturated
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches so far, by kernel name."""
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def _device(t: torch.Tensor, what: str) -> torch.device:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{what}: expected a torch.Tensor, got {type(t).__name__}")
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device
+
+
+def _check(t, what: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device`` whose
+    shape matches ``shape`` (a None entry matches any length)."""
+    if _device(t, what) != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != len(shape) or any(s is not None and s != n for s, n in zip(shape, t.shape)):
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+@functools.lru_cache(maxsize=16)
+def _scales(cfg: SketchConfig, device: torch.device) -> torch.Tensor:
+    return estimators.bin_scales(cfg, device)
+
+
+def scales(cfg: SketchConfig, device) -> torch.Tensor:
+    """s_k = 2^-(k + r_min + 1) as float32[2^b] on ``device`` (cached)."""
+    return _scales(cfg, torch.device(device))
+
+
+def qsketch_update_op(cfg: SketchConfig, regs, lo, hi, log2w):
+    """K1: int8[m] registers after folding a batch (masked rows carry
+    log2w = -inf). lo/hi int64[B], log2w float32[B], regs int8[m]."""
+    dev = _device(regs, "regs")
+    _check(regs, "regs", torch.int8, (cfg.m,), dev)
+    _check(lo, "lo", torch.int64, (None,), dev)
+    _check(hi, "hi", torch.int64, lo.shape, dev)
+    _check(log2w, "log2w", torch.float32, lo.shape, dev)
+    return qsketch_update.update_regs(
+        lo, hi, log2w, regs, salt=cfg.salt_h, r_min=cfg.r_min, r_max=cfg.r_max
+    )
+
+
+def qdyn_qr_op(cfg: SketchConfig, hist, weights):
+    """K2: q_R of float32[B] weights against one int32[2^b] histogram,
+    floored at ``QR_FLOOR``."""
+    dev = _device(weights, "weights")
+    _check(weights, "weights", torch.float32, (None,), dev)
+    _check(hist, "hist", torch.int32, (cfg.num_bins,), dev)
+    q = qdyn_qr.q_r(weights, hist, scales(cfg, dev), cfg.m)
+    return torch.clamp(q, min=QR_FLOOR)
+
+
+def dyn_array_update_op(cfg: SketchConfig, hists, keys, weights):
+    """K3 — the kernel stage of the DynArray update: q_R of element i
+    against its key's batch-start histogram row ``hists[keys[i]]``
+    (int32[K, 2^b]; keys int64[B], clipped to [0, K)), floored at
+    ``QR_FLOOR``."""
+    dev = _device(weights, "weights")
+    _check(weights, "weights", torch.float32, (None,), dev)
+    _check(keys, "keys", torch.int64, weights.shape, dev)
+    _check(hists, "hists", torch.int32, (None, cfg.num_bins), dev)
+    q = dyn_array_update.keyed_q_r(weights, hists, keys, scales(cfg, dev), cfg.m)
+    return torch.clamp(q, min=QR_FLOOR)
+
+
+def estimate_rows_op(cfg: SketchConfig, regs, *, kind: str = "routed"):
+    """K4 — the ``fused`` solver: (Ĉ[K], stddev[K], converged[K]) of
+    int8[K, m] register rows. ``"full"`` returns the MLE; ``"routed"``
+    scales ×m (all-r_min rows are exactly 0 inside the kernel)."""
+    if kind not in ("full", "routed"):
+        raise ValueError(f"unknown kind {kind!r}; expected 'full' or 'routed'")
+    dev = _device(regs, "regs")
+    _check(regs, "regs", torch.int8, (None, cfg.m), dev)
+    chat, std, conv = estimate.estimate_rows(cfg, regs)
+    if kind == "routed":
+        return chat * cfg.m, std * cfg.m, conv
+    return chat, std, conv

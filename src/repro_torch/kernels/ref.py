@@ -1,0 +1,55 @@
+"""Plain PyTorch versions of the kernels K1–K4, operand for operand.
+
+Each function computes what its CUDA kernel computes, on the same operands,
+with PyTorch tensor ops. The wrappers run them for CPU tensors; the tests
+hold them against the JAX package's ``*_padded`` kernel entries; and
+``chip_smoke.py`` holds each kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import estimators, hashing
+from ..core.types import SketchConfig
+
+
+def qsketch_update_ref(lo, hi, log2w, regs, *, salt: int, r_min: int, r_max: int):
+    """K1: int8[m] registers max-folded with y_ij over the batch.
+
+    lo/hi int64[B] id words, log2w float32[B] (-inf on masked rows),
+    regs int8[m]. y = clip(floor(log2 w - log2(-ln u)), r_min, r_max), a NaN
+    y (masked or zero-weight row whose -ln u rounded to 0) counts as r_min.
+    """
+    if lo.shape[0] == 0:
+        return regs.clone()
+    j = torch.arange(regs.shape[0], dtype=torch.int64, device=regs.device)
+    e = hashing.neg_log_uniform((lo[:, None], hi[:, None], j[None, :]), salt)
+    y = torch.floor(log2w[:, None] - torch.log2(e))
+    y = torch.clamp(torch.nan_to_num(y, nan=float(r_min)), float(r_min), float(r_max))
+    return torch.maximum(regs, y.amax(0).to(torch.int8))
+
+
+def qdyn_qr_ref(w, hist, scales, m: int):
+    """K2: q_R = 1 - (1/m) Σ_k T[k] exp(-w s_k) for one histogram T (int32)."""
+    expo = torch.exp(-w[:, None] * scales)
+    return 1.0 - (hist.to(torch.float32) * expo).sum(-1) / m
+
+
+def keyed_qr_ref(w, hists, keys, scales, m: int):
+    """K3: q_R of element i against row keys[i] (clipped to [0, K)) of the
+    int32 histogram block."""
+    expo = torch.exp(-w[:, None] * scales)
+    rows = hists[torch.clamp(keys, 0, hists.shape[0] - 1)]
+    return 1.0 - (rows.to(torch.float32) * expo).sum(-1) / m
+
+
+def estimate_rows_ref(cfg: SketchConfig, regs):
+    """K4: per-row bincount + exactly 30 rebased, safeguarded Newton steps.
+
+    regs int8[K, m] -> unscaled (chat f32[K], stddev f32[K], converged
+    bool[K]); all-r_min rows report chat 0.
+    """
+    return estimators.newton_solve(
+        cfg, estimators.histograms(cfg, regs), max_iters=30, tol=None
+    )

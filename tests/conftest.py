@@ -40,3 +40,9 @@ except ImportError:
     _hyp_settings.register_profile("quick", max_examples=6)
     _hyp_settings.register_profile("deep", max_examples=30)
 _hyp_settings.load_profile(os.environ.get("HYPOTHESIS_PROFILE", "quick"))
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (skips without them)"
+    )
