@@ -3,24 +3,36 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the four CUDA kernels of the path (K1 qsketch_update, K2 qdyn_qr,
-K3 dyn_array_update, K4 estimate) from ``src/repro_torch/csrc``, then, at
-the README's configuration (m = 256, b = 8) and K = 2^20 tenants:
+Builds the six CUDA kernels of the port (K1 qsketch_update, K2 qdyn_qr,
+K3 dyn_array_update, K4 estimate, K6 sketch_array_update, K7
+window_union) from ``src/repro_torch/csrc``, then, at the README's
+configuration (m = 256, b = 8) and K = 2^20 tenants:
 
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: time and ptxas report (registers, shared memory, spills);
   3. main path: a Zipf-bursty stream of sparse 64-bit tenants through the
      key directory into the DynArray monitor, the same stream through the
      scalar full-QSketch monitor and one whole-stream QSketch-Dyn sketch,
-     then the anytime read and the fused MLE read; every kernel must have
+     then the anytime read and the fused MLE read; K1-K4 must have
      launched during this phase;
+  3a. per-key SketchArray monitor: the same stream through
+     ``update_array(..., dcfg=...)`` (K6), then ``estimate_array``;
+  3b. windowed alerts: the same stream over 16 epochs of a
+     ``WindowMonitor`` ring of E = 8 (K3 twice per batch), a flood of fresh
+     ids on one mid-rank tenant at epoch 13, the anytime read and the
+     AnomalyBank every epoch, and the windowed reads (w = 4 through K7,
+     w = 8 from the cache) after the last epoch;
   4. kernels against their plain PyTorch versions on the card, at the
-     path's shapes and on its data;
-  5. where an update's time goes (torch.profiler);
+     paths' shapes and on their data;
+  5. where an update's time goes (torch.profiler): DynArray and
+     SketchArray batches;
   6. CPU replay of a stream prefix: the card's state against the port's
      plain CPU path;
+  6b. CPU replay of the window path (K = 2^16, E = 4, the ring wrapped);
   7. accuracy against the exact weighted cardinality of the stream.
 
+Each path runs with the launch counts set to 0 just before it and read
+just after; every kernel of the path must have launched.
 Prints one JSON ``{"kernels": [...]}`` line, then, last, the contract line
 ``{"ok": true, "device": {...}}``. Any failed phase raises, so the script
 exits non-zero before the last line. Without a CUDA device, or without
@@ -42,6 +54,13 @@ ROOT = Path(__file__).resolve().parent
 CHUNK = 4096  # arrival granularity of the load generator (benchmarks/ingest.py)
 N_ELEMENTS = 4_194_304  # stream length
 BATCH = 65_536  # elements per update
+MAIN_KERNELS = ("qsketch_update", "qdyn_qr", "dyn_array_update", "estimate")
+# Windowed-alerts phase: ring size of experiments/bench/window_array.json,
+# 16 epochs of 4 batches, a flood of fresh ids on the rank-50 tenant.
+N_EPOCHS_RING = 8
+N_EPOCHS = 16
+FLOOD_EPOCH = 13
+FLOOD_RANK = 50
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at its 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -73,7 +92,7 @@ def zipf_bursty_stream(n, k, seed, *, s=1.2, burst_every=4, burst_frac=0.5, n_ho
     ids, so duplicates occur; each pool id carries one gamma(1, 2) + 1e-4
     weight (weight is a function of the element). Each rank maps to a fixed
     random 64-bit tenant id. Returns (tenant uint64[n], pool index int64[n],
-    pool ids uint64, pool weights float32).
+    pool ids uint64, pool weights float32, tenant id of each rank uint64[k]).
     """
     rng = np.random.default_rng(seed)
     p = 1.0 / np.arange(1, k + 1, dtype=np.float64) ** s
@@ -88,13 +107,13 @@ def zipf_bursty_stream(n, k, seed, *, s=1.2, burst_every=4, burst_frac=0.5, n_ho
         nb = int(b * burst_frac)
         ranks[c0 : c0 + nb] = hot[rng.integers(0, n_hot, nb)]
     pool_idx = rng.integers(0, len(pool_ids), n)
-    return tenant_ids[ranks], pool_idx, pool_ids, pool_w
+    return tenant_ids[ranks], pool_idx, pool_ids, pool_w, tenant_ids
 
 
 def to_device(stream, dev):
     import torch
 
-    tenants, pool_idx, pool_ids, pool_w = stream
+    tenants, pool_idx, pool_ids, pool_w, _ = stream
     t = torch.from_numpy(tenants.view(np.int64)).to(dev)
     return {
         "t_lo": t & 0xFFFFFFFF,
@@ -164,6 +183,231 @@ def mon_state_view(state):
     return DynArrayState(regs=state.regs, hists=state.hists, chats=state.chats)
 
 
+def host_truth(slots, pool_idx, pool_w, capacity):
+    """Exact weighted cardinality per slot of the elements (slot, pool
+    index) given — each distinct (slot, id) pair counts its weight once —
+    and the number of distinct ids per slot."""
+    pairs = np.unique((slots.astype(np.int64) << 32) | pool_idx)
+    truth = np.bincount(pairs >> 32, weights=pool_w[pairs & 0xFFFFFFFF].astype(np.float64),
+                        minlength=capacity)
+    return truth, np.bincount(pairs >> 32, minlength=capacity)
+
+
+def median_rel_err(est, truth, sel):
+    return float(np.median(np.abs(est[sel].astype(np.float64) - truth[sel]) / truth[sel]))
+
+
+def run_sketch_array_path(cfg, dev, data, n, batch, capacity):
+    """Phase 3a: the stream through the per-key SketchArray monitor (sparse
+    tenant ids routed by ``dcfg``), then the batched MLE read."""
+    from repro_torch.core import DirectoryConfig
+    from repro_torch.sketchstream import monitor
+
+    dcfg = DirectoryConfig(capacity=capacity, seed=cfg.seed)
+    state = monitor.init_array(cfg, capacity, device=dev)
+    spans = [slice(i, min(i + batch, n)) for i in range(0, n, batch)]
+    sync(dev)
+    t0 = time.perf_counter()
+    for sl in spans:
+        state = monitor.update_array(cfg, state, (data["t_lo"][sl], data["t_hi"][sl]), data["ids"][sl],
+                                     data["w"][sl], dcfg=dcfg)
+    sync(dev)
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    est = monitor.estimate_array(cfg, state)
+    sync(dev)
+    return {"state": state, "dcfg": dcfg, "est": est, "update_s": update_s,
+            "read_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def sketch_array_checks(cfg, stream, data, sa, capacity):
+    """Phase 3a's gate: the full-QSketch rows against the exact weighted
+    cardinality of the stream on the 1,000 heaviest slots."""
+    import torch
+
+    from repro_torch.core import key_directory
+
+    _, pool_idx, _, pool_w, _ = stream
+    slots = key_directory.route_slots(sa["dcfg"], (data["t_lo"], data["t_hi"])).cpu().numpy()
+    truth, _ = host_truth(slots, pool_idx, pool_w, capacity)
+    top = np.argsort(truth)[-1000:]
+    est = sa["est"].cpu().numpy()
+    med = median_rel_err(est, truth, top)
+    print(f"  estimate_array, 1000 heaviest slots: median relative error {med:.5f}")
+    check(bool(torch.isfinite(sa["est"]).all()) and sa["est"].shape == (capacity,), "finite, one per slot")
+    # A full QSketch row has no untouched-register collapse: m = 256 gives a
+    # relative standard error of a few percent on every row.
+    check(med < 0.1, "per-key SketchArray accuracy")
+
+
+def flood_batch(stream, seed, batch, dev):
+    """Phase 3b's flood: ``batch`` fresh distinct 64-bit ids with gamma(1, 2)
+    + 1e-4 weights, all on the rank-``FLOOD_RANK`` tenant."""
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    ids = np.unique(rng.integers(0, 2**64, batch + 64, dtype=np.uint64))[:batch]
+    check(len(ids) == batch, "flood ids are distinct")
+    rng.shuffle(ids)
+    w = (rng.gamma(1.0, 2.0, batch) + 1e-4).astype(np.float32)
+    tenant = np.full(batch, stream[4][FLOOD_RANK], dtype=np.uint64).view(np.int64)
+    t = torch.from_numpy(tenant).to(dev)
+    return {"t_lo": t & 0xFFFFFFFF, "t_hi": (t >> 32) & 0xFFFFFFFF,
+            "ids": torch.from_numpy(ids.view(np.int64)).to(dev), "w": torch.from_numpy(w).to(dev)}
+
+
+def run_window_path(cfg, dev, data, flood, n, batch, capacity):
+    """Phase 3b: the stream over N_EPOCHS epochs of a WindowMonitor ring
+    (rotating after each), the flood at FLOOD_EPOCH, the anytime read and
+    the AnomalyBank every epoch, the windowed reads after the last epoch."""
+    import torch
+
+    from repro_torch.core import key_directory, window_array
+    from repro_torch.sketchstream import anomaly, monitor
+
+    e = N_EPOCHS_RING
+    mon = monitor.WindowMonitor.for_capacity(cfg, capacity, e, evict_after=e, device=dev)
+    bcfg = anomaly.AnomalyConfig(warmup=e + 2, min_weight=1000.0, cusum_h=8.0)
+    state, bank = mon.init(), anomaly.init(capacity, device=dev)
+    flood_slot = int(key_directory.route_slots(mon.dcfg, (flood["t_lo"][:1], flood["t_hi"][:1]))[0])
+    per_epoch = n // N_EPOCHS
+    out = {"update_s": 0.0, "rotate_ms": [], "anytime_ms": [], "flood_slot": flood_slot,
+           "flagged_at": [], "others": set()}
+    for ep in range(N_EPOCHS):
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(ep * per_epoch, (ep + 1) * per_epoch, batch):
+            sl = slice(i, i + batch)
+            state = mon.update(state, (data["t_lo"][sl], data["t_hi"][sl]), data["ids"][sl], data["w"][sl])
+        if ep == FLOOD_EPOCH:
+            state = mon.update(state, (flood["t_lo"], flood["t_hi"]), flood["ids"], flood["w"])
+        sync(dev)
+        out["update_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        est = mon.estimate(state)
+        sync(dev)
+        out["anytime_ms"].append((time.perf_counter() - t0) * 1e3)
+        bank, scores = anomaly.step(bcfg, bank, est)
+        alerts = anomaly.top_alerts(bcfg, scores, n=5)
+        over = set((scores > bcfg.cusum_h).nonzero().flatten().tolist()) - {flood_slot}
+        out["others"] |= over
+        if ep >= FLOOD_EPOCH and flood_slot in [s for s, _ in alerts]:
+            out["flagged_at"].append(ep)
+        tag = " ".join(f"{s}:{sc:.1f}" for s, sc in alerts) or "-"
+        print(f"    epoch {ep:2d}: window estimate total {float(est.sum()):.1f}; alerting slots "
+              f"{int((scores > bcfg.cusum_h).sum())}; top-5 {tag}")
+        if ep == N_EPOCHS - 1:
+            for w in (4, e):
+                sync(dev)
+                t0 = time.perf_counter()
+                out[f"w{w}"] = mon.estimate(state, w=w)
+                sync(dev)
+                out[f"w{w}_ms"] = (time.perf_counter() - t0) * 1e3
+            out["union4"] = window_array.window_union_regs(state.window, 4)
+            out[f"union{e}"] = state.window.union_regs.clone()
+            out["metrics"] = {k: float(v) for k, v in mon.metrics(state).items()}
+        sync(dev)
+        t0 = time.perf_counter()
+        state = mon.rotate(state)
+        sync(dev)
+        out["rotate_ms"].append((time.perf_counter() - t0) * 1e3)
+    out.update(mon=mon, state=state, epoch_len=per_epoch)
+    return out
+
+
+def window_checks(cfg, stream, data, flood, win, n, capacity):
+    """Phase 3b's gates: the flood is flagged; on the heavy slots whose
+    union row has every register touched, each windowed read equals the
+    float64 oracle of the reference's estimator on the window's union
+    registers, and its median relative error against the exact weighted
+    cardinality of the window's epochs is no worse than the oracle's own."""
+    from repro_torch.core import estimation, estimators, key_directory
+
+    _, pool_idx, _, pool_w, _ = stream
+    slots = key_directory.route_slots(win["mon"].dcfg, (data["t_lo"], data["t_hi"])).cpu().numpy()
+    flood_w = float(flood["w"].double().sum())
+    for w in (N_EPOCHS_RING, 4):
+        first = (N_EPOCHS - w) * win["epoch_len"]
+        truth, n_distinct = host_truth(slots[first:n], pool_idx[first:n], pool_w, capacity)
+        truth[win["flood_slot"]] += flood_w  # fresh ids: distinct from every stream id
+        n_distinct[win["flood_slot"]] += len(flood["w"])
+        top = np.argsort(truth)[-1000:]
+        union = win[f"union{w}"][top].cpu().numpy()
+        dense = top[(union > cfg.r_min).all(1)]
+        est = win[f"w{w}"].cpu().numpy()
+        check(bool(np.isfinite(est).all()) and est.shape == (capacity,), f"estimate(w={w}) finite, one per slot")
+        rows = {int(s): r for s, r in zip(top, union)}
+        oracle = np.array([estimators.mle_numpy(cfg, rows[int(s)]) * cfg.m for s in dense])
+        off = np.abs(est[dense] - oracle) - (estimation.LUT_RTOL * oracle + estimation.ATOL_FLOOR)
+        check(len(dense) > 0, f"estimate(w={w}): some heavy slot has every union register touched")
+        med = median_rel_err(est, truth, dense)
+        med_oracle = float(np.median(np.abs(oracle - truth[dense]) / truth[dense]))
+        print(f"  estimate(w={w}) over the last {w} epochs, 1000 heaviest slots: {len(dense)} have every register "
+              f"touched (median {int(np.median(n_distinct[dense]))} distinct elements); median relative error "
+              f"there {med:.5f}, the float64 oracle's {med_oracle:.5f}; largest excess over LUT_RTOL against "
+              f"the oracle {float(off.max()):.3e}")
+        check(bool((off <= 0).all()),
+              f"estimate(w={w}) equals the float64 MLE of the window's union registers within LUT_RTOL")
+        # Each estimate lies within LUT_RTOL of the oracle, so each relative
+        # error moves by at most LUT_RTOL * (1 + that error): below
+        # 2 * LUT_RTOL wherever the oracle is off by less than 100 %.
+        check(med <= med_oracle + 2 * estimation.LUT_RTOL,
+              f"estimate(w={w}) accuracy no worse than the reference estimator's on the same registers")
+    print(f"  flood slot {win['flood_slot']} in the top-5 alerts at epochs {win['flagged_at']}; "
+          f"{len(win['others'])} other slots alerted at some epoch")
+    check(len(win["flagged_at"]) > 0, "the flood tenant is among the top-5 alerts at some epoch >= 13")
+
+
+def window_replay(cfg, data, dev, capacity, batch, e=4, n_epochs=5):
+    """Phase 6b: a prefix of the window path on the card and on the CPU —
+    one batch per epoch and a rotate between epochs, so the E-th rotate
+    evicts epoch 0 and the last epoch is written into its recycled plane —
+    then the windowed read over the last two epochs, which wraps round the
+    ring. Integer state bit for bit; chats and the read to rtol 1e-5. (Each
+    rotate runs the histogram MLE over all K rows; on the CPU that is most
+    of this phase's time.)"""
+    import torch
+
+    from repro_torch.sketchstream import monitor
+
+    cpu = torch.device("cpu")
+    states, reads = [], []
+    for d in (dev, cpu):
+        mon = monitor.WindowMonitor.for_capacity(cfg, capacity, e, evict_after=e, device=d)
+        st = mon.init()
+        t0 = time.perf_counter()
+        for ep in range(n_epochs):
+            sl = slice(ep * batch, (ep + 1) * batch)
+            st = mon.update(st, (data["t_lo"][sl].to(d), data["t_hi"][sl].to(d)), data["ids"][sl].to(d),
+                            data["w"][sl].to(d))
+            if ep < n_epochs - 1:
+                st = mon.rotate(st)
+        reads.append(mon.estimate(st, w=2).cpu())
+        sync(d)
+        print(f"  {d.type}: {n_epochs} epochs of {batch} elements at K = {capacity}, E = {e} "
+              f"in {time.perf_counter() - t0:.3f} s")
+        states.append(st)
+    b, a = states
+    fields = ("regs", "hists", "union_regs", "union_hists", "head", "filled", "epoch_id")
+    equal = all(torch.equal(getattr(b.window, f).cpu(), getattr(a.window, f)) for f in fields)
+    equal &= all(torch.equal(getattr(b.directory, f).cpu(), getattr(a.directory, f)) for f in a.directory._fields)
+    equal &= torch.equal(b.n_seen.cpu(), a.n_seen)
+    close = {
+        "chats": (b.window.chats.cpu(), a.window.chats),
+        "union_chats": (b.window.union_chats.cpu(), a.window.union_chats),
+        "estimate(w=2)": (reads[0], reads[1]),
+    }
+    ok = True
+    for name, (x, y) in close.items():
+        good = bool(torch.allclose(x, y, rtol=1e-5, atol=1e-6))
+        ok &= good
+        print(f"  {name}: max relative difference {rel_err(x, y):.3e} (allclose rtol 1e-5, atol 1e-6: {good})")
+    print(f"  integer state equal (ring, union, head/filled/epoch_id, directory, n_seen): {equal}; "
+          f"head {int(a.window.head)}, epoch_id {int(a.window.epoch_id)}")
+    check(equal, "card and CPU window integer state differ")
+    check(ok, "card and CPU window chats or reads differ beyond rtol 1e-5")
+
+
 def rel_err(got, want, floor=1e-6):
     """Largest relative difference over entries whose reference exceeds ``floor``."""
     sel = want.abs() > floor
@@ -172,32 +416,50 @@ def rel_err(got, want, floor=1e-6):
     return float(((got[sel] - want[sel]).abs() / want[sel].abs()).max())
 
 
-def time_ms(fn, reps, dev, rounds=5):
+def time_ms(fn, reps, dev, rounds=5, reset=None):
     """Milliseconds per call: CUDA events around ``reps`` back-to-back calls,
     the median of ``rounds`` such runs (a host stall in one run does not
-    set the figure)."""
+    set the figure). With ``reset``, each call gets events of its own and
+    ``reset()`` runs before it, outside them (a kernel that updates its
+    input in place then starts every call from the same input)."""
     import torch
 
+    if reset is not None:
+        reset()
     fn()  # warm
     sync(dev)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     per_call = []
     for _ in range(rounds):
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
+        if reset is None:
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            per_call.append(start.elapsed_time(end) / reps)
+        else:
+            total = 0.0
+            for _ in range(reps):
+                reset()
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                total += start.elapsed_time(end)
+            per_call.append(total / reps)
     return float(np.median(per_call))
 
 
-def kernel_checks(cfg, dev, data, main, batch, launches):
-    """Each kernel's wrapper against its plain version on the path's shapes."""
+def kernel_checks(cfg, dev, data, main, sa, win, batch, launches):
+    """Each kernel's wrapper against its plain version on the paths' shapes."""
     import torch
 
     from repro_torch.core import estimators, key_directory
-    from repro_torch.kernels import dyn_array_update, estimate, ops, qdyn_qr, qsketch_update, ref
+    from repro_torch.kernels import (
+        dyn_array_update, estimate, ops, qdyn_qr, qsketch_update, ref, sketch_array_update, window_union,
+    )
+    from repro_torch.sketchstream import monitor
 
     sl = slice(0, batch)
     lo, hi = data["ids"][sl] & 0xFFFFFFFF, (data["ids"][sl] >> 32) & 0xFFFFFFFF
@@ -210,8 +472,8 @@ def kernel_checks(cfg, dev, data, main, batch, launches):
     hist = main["dyn"].hist
     rows = []
 
-    def entry(name, source, replaces, err, tol_ok, fn_k, fn_p, reps, bytes_, ops_, extra=""):
-        ms = time_ms(fn_k, reps, dev)
+    def entry(name, source, replaces, err, tol_ok, fn_k, fn_p, reps, bytes_, ops_, extra="", reset=None):
+        ms = time_ms(fn_k, reps, dev, reset=reset)
         plain_ms = time_ms(fn_p, max(1, reps // 10), dev, rounds=3)
         b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops_ / F32_OPS_PER_S * 1e3
         bound_by = "bytes" if b_ms >= o_ms else "operations"
@@ -276,33 +538,76 @@ def kernel_checks(cfg, dev, data, main, batch, launches):
           k * cfg.m + k * 12, occ_bins * K4_EVALS * K4_OPS_PER_BIN,
           extra=f" rows={k} mean_occupied_bins={occ_bins / k:.3f} "
                 f"max_rel_err(rows above 1e-6)={rel_err(chat, chat_p):.3e}")
+
+    # K6: the path's first batch, with the path's keys, folded into fresh
+    # registers of the path's size (the path's first update), so every
+    # touched row rises. The kernel updates in place: each timed call
+    # starts from a fresh copy, made outside its events.
+    keys6 = key_directory.route_slots(sa["dcfg"], (data["t_lo"][sl], data["t_hi"][sl])).contiguous()
+    fresh6 = monitor.init_array(cfg, sa["state"].regs.shape[0], device=dev).regs
+    work6 = fresh6.clone()
+    want = ref.sketch_array_update_ref(lo, hi, log2w, keys6, fresh6, **args1)
+    got = sketch_array_update.update_regs(lo, hi, log2w, keys6, work6, **args1)
+    err = float((got.int() - want.int()).abs().max())
+    raised = want != fresh6
+    n_raised, rows_raised = int(raised.sum()), int(raised.any(1).sum())
+    check(n_raised > 0, "K6's check batch raises registers")
+    uniq6 = int(torch.unique(keys6).numel())
+    entry("sketch_array_update", "src/repro_torch/csrc/sketch_array_update.cu",
+          "src/repro/kernels/sketch_array_update.py:43", err, bool(torch.equal(got, want)),
+          lambda: sketch_array_update.update_regs(lo, hi, log2w, keys6, work6, **args1),
+          lambda: ref.sketch_array_update_ref(lo, hi, log2w, keys6, fresh6, **args1), 50,
+          batch * 28 + uniq6 * cfg.m * 2, batch * cfg.m * K1_OPS_PER_PAIR,
+          extra=f" distinct_rows={uniq6} registers_raised={n_raised} rows_raised={rows_raised}",
+          reset=lambda: work6.copy_(fresh6))
+
+    # K7: the windowed union histograms of the ring after its path, at a
+    # head whose windows wrap round the ring; timed at the path's w = 4.
+    ring = win["state"].window.regs
+    e, k7, m7 = ring.shape
+    head = torch.tensor(2, dtype=torch.int32, device=dev)
+    equal, err = True, 0.0
+    for w in (1, 4, 7):
+        got = window_union.union_hists(ring, head, w, r_min=cfg.r_min, nb=cfg.num_bins)
+        want = ref.window_union_ref(ring, head, w, r_min=cfg.r_min, nb=cfg.num_bins)
+        equal &= bool(torch.equal(got, want))
+        err = max(err, float((got - want).abs().max()))
+    entry("window_union", "src/repro_torch/csrc/window_union.cu", "src/repro/kernels/window_union.py:40",
+          err, equal,
+          lambda: window_union.union_hists(ring, head, 4, r_min=cfg.r_min, nb=cfg.num_bins),
+          lambda: ref.window_union_ref(ring, head, 4, r_min=cfg.r_min, nb=cfg.num_bins), 10,
+          4 * k7 * m7 + k7 * cfg.num_bins * 4 + 4, 4 * k7 * m7 + k7 * m7,
+          extra=f" ring=({e}, {k7}, {m7}) head=2 w=1,4,7 equal={equal}")
     return rows
 
 
-def profile_updates(mon, state, data, batch, dev, n_batches=4):
-    """Device time by kernel and the device idle share over ``n_batches``
-    DynArray updates (re-feeding the stream's first batches)."""
+def profile_updates(update, start, batch, dev, n_batches=4):
+    """Device time by kernel and the device idle share over the stream's
+    first ``n_batches`` batches, ``update(state, span)`` each, from the
+    state ``start()`` gives (made before each timed run, outside it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     spans = [slice(i * batch, (i + 1) * batch) for i in range(n_batches)]
 
-    def window():
-        nonlocal state
+    def window(state):
         for sl in spans:
-            state = mon.update(state, (data["t_lo"][sl], data["t_hi"][sl]), data["ids"][sl], data["w"][sl])
+            state = update(state, sl)
         sync(dev)
 
+    state = start()
     sync(dev)
     t0 = time.perf_counter()
-    window()
+    window(state)
     wall = time.perf_counter() - t0
+    state = start()
+    sync(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        window()
+        window(state)
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     if not kernels or busy_us <= 0:
-        ms = time_ms(window, 2, dev) / n_batches
+        ms = time_ms(lambda: window(state), 2, dev) / n_batches
         print(f"  profiler recorded no device time; CUDA events: {ms:.4f} ms per batch; idle share not measured")
         return
     by_name = {}
@@ -364,12 +669,10 @@ def accuracy(cfg, stream, data, main, n):
 
     from repro_torch.core import key_directory
 
-    _, pool_idx, _, pool_w = stream
+    _, pool_idx, _, pool_w, _ = stream
     dcfg = main["mon"].dcfg
     slots = key_directory.route_slots(dcfg, (data["t_lo"], data["t_hi"])).cpu().numpy()
-    pairs = np.unique((slots << 32) | pool_idx)
-    truth = np.bincount(pairs >> 32, weights=pool_w[pairs & 0xFFFFFFFF].astype(np.float64),
-                        minlength=dcfg.capacity)
+    truth, _ = host_truth(slots, pool_idx, pool_w, dcfg.capacity)
     top = np.argsort(truth)[-1000:]
     est = main["anytime"].cpu().numpy().astype(np.float64)
     rel = np.abs(est[top] - truth[top]) / truth[top]
@@ -403,14 +706,22 @@ def warm_up(cfg, dev, data, batch):
     """One small pass through every entry point (library loads, allocator,
     sort workspaces) before the measured run."""
     from repro_torch.core import dyn_array, qsketch_dyn
-    from repro_torch.sketchstream import monitor
+    from repro_torch.sketchstream import anomaly, monitor
 
     sl = slice(0, batch)
+    keys = (data["t_lo"][sl], data["t_hi"][sl])
     mon = monitor.DynArrayMonitor.for_capacity(cfg, 1024, device=dev)
-    st = mon.update(mon.init(), (data["t_lo"][sl], data["t_hi"][sl]), data["ids"][sl], data["w"][sl])
+    st = mon.update(mon.init(), keys, data["ids"][sl], data["w"][sl])
     monitor.update(cfg, monitor.init(cfg, device=dev), data["ids"][sl], data["w"][sl])
     qsketch_dyn.update_batch(cfg, qsketch_dyn.init(cfg, device=dev), data["ids"][sl], data["w"][sl])
     dyn_array.estimate_mle_all(cfg, mon_state_view(st), solver="fused")
+    arr = monitor.update_array(cfg, monitor.init_array(cfg, 1024, device=dev), keys, data["ids"][sl],
+                               data["w"][sl], dcfg=mon.dcfg)
+    monitor.estimate_array(cfg, arr)
+    wmon = monitor.WindowMonitor.for_capacity(cfg, 1024, 4, evict_after=4, device=dev)
+    ws = wmon.rotate(wmon.update(wmon.init(), keys, data["ids"][sl], data["w"][sl]))
+    wmon.estimate(ws, w=2)
+    anomaly.step(anomaly.AnomalyConfig(), anomaly.init(1024, device=dev), wmon.estimate(ws))
     sync(dev)
 
 
@@ -479,17 +790,75 @@ def main(argv=None) -> int:
     print(f"  directory: n_routed={int(st.directory.n_routed)} n_collisions={int(st.directory.n_collisions)}; "
           f"touched rows {int((st.hists.sum(1) > 0).sum())}")
     print(f"  launches: {json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()), "every kernel of the path must launch")
+    check(all(launches[k] > 0 for k in MAIN_KERNELS), "every kernel of the path must launch")
     check(int(st.n_seen) == N_ELEMENTS, "n_seen counts the stream")
 
+    print("phase 3a: per-key SketchArray monitor (K6)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    sa_out = run_sketch_array_path(cfg, dev, data, N_ELEMENTS, BATCH, capacity)
+    sa_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"  update_array(dcfg=...): {N_ELEMENTS} elements in {sa_out['update_s']:.4f} s = "
+          f"{N_ELEMENTS / sa_out['update_s']:.1f} elements/s "
+          f"({sa_out['update_s'] / n_batches * 1e3:.4f} ms per batch of {BATCH})")
+    print(f"  estimate_array (histograms + newton over {capacity} rows): {sa_out['read_ms']:.4f} ms")
+    print(f"  peak device memory of the phase (earlier phases' state included): {peak / 2**30:.3f} GiB")
+    print(f"  launches: {json.dumps(sa_launches)}")
+    check(sa_launches["sketch_array_update"] > 0, "K6 must launch on the SketchArray path")
+    check(int(sa_out["state"].n_seen) == N_ELEMENTS, "n_seen counts the stream")
+    sketch_array_checks(cfg, stream, data, sa_out, capacity)
+
+    print(f"phase 3b: windowed alerts (K7): ring E = {N_EPOCHS_RING}, {N_EPOCHS} epochs, "
+          f"flood at epoch {FLOOD_EPOCH}")
+    flood = flood_batch(stream, args.seed, BATCH, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    win_out = run_window_path(cfg, dev, data, flood, N_ELEMENTS, BATCH, capacity)
+    win_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_win = N_ELEMENTS + BATCH
+    wst = win_out["state"].window
+    ring_bytes = sum(t.numel() * t.element_size() for t in wst[:6])
+    print(f"  WindowMonitor.update: {n_win} elements in {win_out['update_s']:.4f} s = "
+          f"{n_win / win_out['update_s']:.1f} elements/s")
+    print(f"  rotate: median {float(np.median(win_out['rotate_ms'])):.4f} ms "
+          f"(min {min(win_out['rotate_ms']):.4f}, max {max(win_out['rotate_ms']):.4f}) over {N_EPOCHS}")
+    print(f"  reads: anytime median {float(np.median(win_out['anytime_ms'])):.4f} ms; "
+          f"estimate(w=4) via K7 {win_out['w4_ms']:.4f} ms; estimate(w={N_EPOCHS_RING}) from the cached "
+          f"union histograms {win_out[f'w{N_EPOCHS_RING}_ms']:.4f} ms")
+    print(f"  ring state {ring_bytes / 2**30:.3f} GiB; peak device memory of the phase (earlier phases' "
+          f"state included): {peak / 2**30:.3f} GiB")
+    print(f"  metrics: {json.dumps(win_out['metrics'])}")
+    print(f"  launches: {json.dumps(win_launches)}")
+    check(win_launches["window_union"] > 0 and win_launches["dyn_array_update"] > 0,
+          "K7 and K3 must launch on the window path")
+    check(int(win_out["state"].n_seen) == n_win, "n_seen counts the stream and the flood")
+    window_checks(cfg, stream, data, flood, win_out, N_ELEMENTS, capacity)
+
+    launches = {**{k: launches[k] for k in MAIN_KERNELS},
+                "sketch_array_update": sa_launches["sketch_array_update"],
+                "window_union": win_launches["window_union"]}
     print("phase 4: kernels against their plain versions on the card")
-    rows = kernel_checks(cfg, dev, data, main_out, BATCH, launches)
+    rows = kernel_checks(cfg, dev, data, main_out, sa_out, win_out, BATCH, launches)
 
     print("phase 5: where an update's time goes")
-    profile_updates(main_out["mon"], st, data, BATCH, dev)
+    from repro_torch.sketchstream import monitor
+
+    def span(sl):
+        return (data["t_lo"][sl], data["t_hi"][sl]), data["ids"][sl], data["w"][sl]
+
+    print("  DynArray monitor, re-fed into the path's final state:")
+    profile_updates(lambda s, sl: main_out["mon"].update(s, *span(sl)), lambda: st, BATCH, dev)
+    print("  SketchArray monitor (update_array, dcfg), into fresh registers as the path began:")
+    profile_updates(lambda s, sl: monitor.update_array(cfg, s, *span(sl), dcfg=sa_out["dcfg"]),
+                    lambda: monitor.init_array(cfg, capacity, device=dev), BATCH, dev)
 
     print("phase 6: CPU replay")
     cpu_replay(cfg, data, dev, min(2**18, N_ELEMENTS), 2**16, BATCH)
+
+    print("phase 6b: CPU replay of the window path")
+    window_replay(cfg, data, dev, 2**16, BATCH)
 
     print("phase 7: accuracy")
     accuracy(cfg, stream, data, main_out, N_ELEMENTS)

@@ -2,7 +2,9 @@
 
 ``from_jax_numpy(state, device)`` takes one of the JAX package's state
 NamedTuples — ``QSketchState``, ``DynState``, ``DynArrayState``,
-``DirectoryState``, ``MonitorState`` or ``DynArrayMonitorState`` — with
+``SketchArrayState``, ``WindowArrayState``, ``DirectoryState``,
+``MonitorState``, ``ArrayMonitorState``, ``DynArrayMonitorState``,
+``WindowMonitorState`` or ``AnomalyBankState`` — with
 numpy (or array-like) leaves, and returns the port's NamedTuple of the same
 name with tensors on ``device``. ``to_numpy(state)`` goes back: the port's
 NamedTuple with numpy leaves in the JAX package's dtypes, ready for
@@ -19,14 +21,20 @@ import numpy as np
 import torch
 
 from .core.key_directory import DirectoryState
-from .core.types import DynArrayState, DynState, QSketchState, resolve_device
-from .sketchstream.monitor import DynArrayMonitorState, MonitorState
+from .core.types import (
+    DynArrayState, DynState, QSketchState, SketchArrayState, WindowArrayState, resolve_device,
+)
+from .sketchstream.anomaly import AnomalyBankState
+from .sketchstream.monitor import (
+    ArrayMonitorState, DynArrayMonitorState, MonitorState, WindowMonitorState,
+)
 
 STATE_TYPES = {
     cls.__name__: cls
     for cls in (
-        QSketchState, DynState, DynArrayState, DirectoryState,
-        MonitorState, DynArrayMonitorState,
+        QSketchState, DynState, DynArrayState, SketchArrayState, WindowArrayState,
+        DirectoryState, MonitorState, ArrayMonitorState, DynArrayMonitorState,
+        WindowMonitorState, AnomalyBankState,
     )
 }
 _UINT32_FIELDS = {("DirectoryState", "fingerprints")}

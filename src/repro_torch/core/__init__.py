@@ -20,9 +20,19 @@ from . import (
     key_directory,
     qsketch,
     qsketch_dyn,
+    sketch_array,
+    window_array,
 )
 from .key_directory import DirectoryConfig, DirectoryState
-from .types import DynArrayState, DynState, QSketchState, SketchConfig, resolve_device
+from .types import (
+    DynArrayState,
+    DynState,
+    QSketchState,
+    SketchArrayState,
+    SketchConfig,
+    WindowArrayState,
+    resolve_device,
+)
 
 __all__ = [
     "SketchConfig",
@@ -31,10 +41,14 @@ __all__ = [
     "DirectoryState",
     "DynArrayState",
     "DynState",
+    "SketchArrayState",
+    "WindowArrayState",
     "resolve_device",
     "qsketch",
     "qsketch_dyn",
     "dyn_array",
+    "sketch_array",
+    "window_array",
     "key_directory",
     "estimation",
     "estimators",

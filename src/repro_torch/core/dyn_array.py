@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from . import estimation, estimators, hashing, key_directory, qsketch_dyn
-from .types import DynArrayState, SketchConfig, resolve_device
+from .types import DynArrayState, DynState, SketchConfig, resolve_device
 
 
 def init(cfg: SketchConfig, k: int, device="cuda") -> DynArrayState:
@@ -123,6 +123,16 @@ def estimate_mle_rows(cfg: SketchConfig, regs, *, solver: str = "newton") -> tor
     return estimation.estimate_rows(cfg, regs, kind="routed", solver=solver)
 
 
+def estimate_mle_hists(cfg: SketchConfig, full_hists, *, solver: str = "newton") -> torch.Tensor:
+    """Per-row histogram-MLE Ĉ (routed) from FULL histograms
+    ``int32[K, 2^b]`` (bin 0 counts untouched r_min registers, rows sum to
+    m). Equal to ``estimate_mle_rows`` on the registers the histograms were
+    counted from: the likelihood sees registers only through their
+    histogram, which lets the window array read its cached union histograms
+    without walking the registers."""
+    return estimation.estimate_hists(cfg, full_hists, kind="routed", solver=solver)
+
+
 def estimate_mle_all(cfg: SketchConfig, state: DynArrayState, *, solver: str = "newton") -> torch.Tensor:
     """Per-key histogram-MLE re-estimate, Ĉ[K]. ``solver="fused"`` streams
     the registers through kernel K4 on a CUDA tensor."""
@@ -162,3 +172,27 @@ def update_tenants(
         )
     slots, dir_state = key_directory.route(dcfg, dir_state, tenant_keys, mask=mask)
     return update_batch(cfg, state, slots, ids, weights, mask=mask), dir_state
+
+
+def update_reference(cfg: SketchConfig, state: DynArrayState, keys, ids, weights, mask=None) -> DynArrayState:
+    """Oracle: partition the stream by key (order kept) and run K independent
+    ``qsketch_dyn.update_batch`` calls. O(K) dispatches — tests only, never
+    the hot path. Keys are clipped to [0, K); masked rows are dropped from
+    their key's sub-stream. Returns a new state; ``state`` is not changed."""
+    k = state.regs.shape[0]
+    keys = torch.clamp(keys.to(torch.int64), 0, k - 1)
+    live = torch.ones(keys.shape, dtype=torch.bool, device=keys.device) if mask is None else mask
+    lo, hi = hashing.split_id64(ids)
+    w = weights.to(torch.float32)
+    rows = []
+    for r in range(k):
+        st = DynState(regs=state.regs[r], hist=state.hists[r], chat=state.chats[r])
+        sel = (keys == r) & live
+        if bool(sel.any()):
+            st = qsketch_dyn.update_batch(cfg, st, (lo[sel], hi[sel]), w[sel])
+        rows.append(st)
+    return DynArrayState(
+        regs=torch.stack([r.regs for r in rows]),
+        hists=torch.stack([r.hist for r in rows]),
+        chats=torch.stack([r.chat for r in rows]),
+    )

@@ -6,7 +6,8 @@ The port of ``repro/core/key_directory.py`` for the main path: routing
 packages route a tenant to the same slot), pinned hot tenants with
 dedicated slots [0, len(pinned)), and the collision telemetry (a per-slot
 32-bit claim fingerprint, routed and collided counters, last-touch
-stamps). ``pin`` and ``evict_older_than`` are not ported yet.
+stamps), and the aging of cold slots (``evict_older_than``). ``pin`` is not
+ported yet.
 
 Telemetry approximations (the JAX package's documented contract):
 first-contact claims within ONE batch resolve by max fingerprint and are not
@@ -141,13 +142,18 @@ def route(dcfg: DirectoryConfig, state: DirectoryState, keys, mask=None, epoch=N
     The slot arrays of ``state`` are updated in place (and returned in
     ``state'`` with the new counters). Masked-off rows get a valid slot but
     touch neither the claim table nor the counters. ``epoch`` stamps each
-    live owner slot's ``last_touch`` (default 0).
+    live owner slot's ``last_touch`` (default 0): an int, or an int32
+    0-dim tensor on the directory's device (the window array's
+    ``epoch_id``), which is read on the device without a host sync.
     """
     lo, hi = hashing.split_id64(keys)
     slots = route_slots(dcfg, (lo, hi))
     fp = _fingerprint(dcfg, lo, hi)
     live = torch.ones(lo.shape, dtype=torch.bool, device=lo.device) if mask is None else mask
-    epoch = 0 if epoch is None else int(epoch)
+    if isinstance(epoch, torch.Tensor):
+        epoch = epoch.to(device=lo.device, dtype=torch.int32)
+    else:
+        epoch = 0 if epoch is None else int(epoch)
 
     cur = state.fingerprints[slots]
     collided = live & (cur != 0) & (cur != fp)
@@ -165,6 +171,27 @@ def route(dcfg: DirectoryConfig, state: DirectoryState, keys, mask=None, epoch=N
         n_collisions=state.n_collisions + collided.sum().to(torch.int32),
         last_touch=state.last_touch,
     )
+
+
+def evict_older_than(dcfg: DirectoryConfig, state: DirectoryState, epoch):
+    """Release hashed slots whose last live routing predates ``epoch``:
+    -> (state', n_evicted int32 0-dim tensor).
+
+    A released slot drops its fingerprint claim and its stamp resets to -1,
+    so the next tenant routed there claims it first-contact instead of
+    counting a collision against a ghost. Pinned slots [0, num_pinned) are
+    exempt. The counters are untouched. The slot arrays are updated in
+    place; ``epoch`` is an int or an int32 0-dim tensor.
+    """
+    slot_ids = torch.arange(dcfg.capacity, device=state.fingerprints.device)
+    cold = (
+        (slot_ids >= dcfg.num_pinned)
+        & (state.fingerprints != 0)
+        & (state.last_touch < epoch)
+    )
+    state.fingerprints.masked_fill_(cold, 0)
+    state.last_touch.masked_fill_(cold, -1)
+    return state, cold.sum().to(torch.int32)
 
 
 def merge(a: DirectoryState, b: DirectoryState) -> DirectoryState:

@@ -93,6 +93,16 @@ class QSketchState(NamedTuple):
     regs: torch.Tensor  # int8[m], initialized to r_min
 
 
+class SketchArrayState(NamedTuple):
+    """K independent QSketches as one register matrix (core/sketch_array.py).
+
+    Row k is bit-identical to a standalone ``QSketchState`` fed the
+    sub-stream of elements whose key is k (same cfg, same hash family).
+    """
+
+    regs: torch.Tensor  # int8[K, m], initialized to r_min
+
+
 class DynState(NamedTuple):
     """QSketch-Dyn state: registers + value histogram + running estimate."""
 
@@ -107,3 +117,27 @@ class DynArrayState(NamedTuple):
     regs: torch.Tensor  # int8[K, m]
     hists: torch.Tensor  # int32[K, 2^b]; per-key counts of *touched* registers
     chats: torch.Tensor  # float32[K], running weighted-cardinality estimates
+
+
+class WindowArrayState(NamedTuple):
+    """Sliding-window DynArray: a ring of E epoch sub-states plus a cached
+    full-ring union (core/window_array.py).
+
+    Epoch e's (regs[e], hists[e], chats[e]) is a ``DynArrayState`` of the
+    sub-stream folded while e was the current epoch; the union_* fields
+    cache the all-epoch max-union with DynArray histogram and martingale
+    maintenance on top. ``head`` is the ring slot of the current epoch,
+    ``filled`` counts live epochs (<= E) and ``epoch_id`` is the monotone
+    epoch clock (total rotations) fed to key-directory aging. The three
+    scalars are int32 0-dim tensors on the state's device.
+    """
+
+    regs: torch.Tensor  # int8[E, K, m]
+    hists: torch.Tensor  # int32[E, K, 2^b]; per-epoch touched-register hists
+    chats: torch.Tensor  # float32[E, K], per-epoch running estimates
+    union_regs: torch.Tensor  # int8[K, m] == max over the epoch axis
+    union_hists: torch.Tensor  # int32[K, 2^b] touched-register hist of union
+    union_chats: torch.Tensor  # float32[K] full-ring anytime estimates
+    head: torch.Tensor  # int32 scalar, ring slot of the current epoch
+    filled: torch.Tensor  # int32 scalar in [1, E], epochs live in the ring
+    epoch_id: torch.Tensor  # int32 scalar, monotone epoch clock

@@ -19,46 +19,21 @@
 // register (CUDA has no 8-bit atomics; the wrapper converts to int8).
 // The first two murmur rounds depend only on the element, so each block
 // mixes (lo, hi) once per element into shared memory and every register
-// thread runs only the third round and the finalizer. The arithmetic is the
-// plain version's, operation for operation: native uint32_t murmur, logf /
-// log2f / floorf (no fast-math intrinsics), so y agrees bit for bit with
-// the plain PyTorch version on the card. A NaN y (possible only for a
-// masked or zero-weight row) clips to r_min.
+// thread runs only the third round and the finalizer. The hash and the
+// quantization are qsketch_y.cuh's, shared with K6: the plain version's
+// arithmetic operation for operation, so y agrees bit for bit with the
+// plain PyTorch version on the card. A NaN y (possible only for a masked or
+// zero-weight row) clips to r_min.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "qsketch_y.cuh"
+
 namespace {
 
-constexpr uint32_t kC1 = 0xCC9E2D51u;
-constexpr uint32_t kC2 = 0x1B873593u;
-constexpr uint32_t kFmix1 = 0x85EBCA6Bu;
-constexpr uint32_t kFmix2 = 0xC2B2AE35u;
-constexpr uint32_t kGolden = 0x9E3779B9u;
 constexpr int kThreads = 256;  // registers per block, one per thread
 constexpr int kRows = 256;     // batch rows per block
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-__device__ __forceinline__ uint32_t mix_word(uint32_t h, uint32_t w, uint32_t i) {
-  uint32_t k = w * kC1;
-  k = rotl32(k, 15);
-  k *= kC2;
-  h ^= k;
-  h = rotl32(h, 13);
-  return h * 5u + (0xE6546B64u + 0x9E3779B1u * i);
-}
-
-__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
-  h ^= h >> 16;
-  h *= kFmix1;
-  h ^= h >> 13;
-  h *= kFmix2;
-  h ^= h >> 16;
-  return h;
-}
 
 __global__ void qsketch_update_kernel(const int64_t* __restrict__ lo,
                                       const int64_t* __restrict__ hi,
@@ -72,10 +47,7 @@ __global__ void qsketch_update_kernel(const int64_t* __restrict__ lo,
   const int64_t left = batch - row0;
   const int rows = left < kRows ? (int)left : kRows;
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    uint32_t h = kGolden ^ salt;
-    h = mix_word(h, (uint32_t)lo[row0 + r], 0u);
-    h = mix_word(h, (uint32_t)hi[row0 + r], 1u);
-    s_h[r] = h;
+    s_h[r] = qsketch_y::element_prefix(salt, (uint32_t)lo[row0 + r], (uint32_t)hi[row0 + r]);
     s_lw[r] = log2w[row0 + r];
   }
   __syncthreads();
@@ -85,12 +57,7 @@ __global__ void qsketch_update_kernel(const int64_t* __restrict__ lo,
   const float hi_clip = (float)r_max;
   float best = lo_clip;
   for (int r = 0; r < rows; ++r) {
-    const uint32_t bits = fmix32(mix_word(s_h[r], (uint32_t)j, 2u));
-    const float u = (float)(bits >> 8) * 5.9604644775390625e-08f + 2.98023223876953125e-08f;
-    const float e = -logf(u);
-    float y = floorf(s_lw[r] - log2f(e));
-    y = fminf(fmaxf(y, lo_clip), hi_clip);
-    best = fmaxf(best, y);
+    best = fmaxf(best, qsketch_y::quantized_y(s_h[r], s_lw[r], (uint32_t)j, lo_clip, hi_clip));
   }
   atomicMax(regs + j, (int)best);
 }

@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Builds happen at first use, land in
 ``build/kernels/`` at the repository root, and are keyed by a digest of the
-source and the flags, so an edited source rebuilds. ``build()`` starts one
-``nvcc`` per source, all at once.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source rebuilds. ``build()`` starts one ``nvcc`` per source, all at once.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3`` and no
 ``--use_fast_math``, so the kernels use the same ``logf`` / ``log2f`` /
@@ -63,9 +63,10 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
+    )
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

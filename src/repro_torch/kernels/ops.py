@@ -1,4 +1,4 @@
-"""Validated fronts of the four kernels on the main path.
+"""Validated fronts of the ported kernels (K1–K4, K6, K7).
 
 Each front takes the sketch configuration and the kernel's operands as the
 core modules hold them, checks them — every operand on one CPU or CUDA
@@ -25,13 +25,22 @@ import torch
 
 from ..core import estimators
 from ..core.types import SketchConfig
-from . import dyn_array_update, estimate, qdyn_qr, qsketch_update
+from . import (
+    dyn_array_update,
+    estimate,
+    qdyn_qr,
+    qsketch_update,
+    sketch_array_update,
+    window_union,
+)
 
 KERNELS = {
     "qsketch_update": qsketch_update.KERNEL,
     "qdyn_qr": qdyn_qr.KERNEL,
     "dyn_array_update": dyn_array_update.KERNEL,
     "estimate": estimate.KERNEL,
+    "sketch_array_update": sketch_array_update.KERNEL,
+    "window_union": window_union.KERNEL,
 }
 
 QR_FLOOR = 1e-12  # q_R guard; only reachable when a sketch is fully saturated
@@ -90,6 +99,33 @@ def qsketch_update_op(cfg: SketchConfig, regs, lo, hi, log2w):
     return qsketch_update.update_regs(
         lo, hi, log2w, regs, salt=cfg.salt_h, r_min=cfg.r_min, r_max=cfg.r_max
     )
+
+
+def sketch_array_update_op(cfg: SketchConfig, regs, keys, lo, hi, log2w):
+    """K6: fold a keyed batch into int8[K, m] registers IN PLACE and return
+    them. keys int64[B] (clipped to [0, K)), lo/hi int64[B], log2w
+    float32[B] (-inf on masked rows)."""
+    dev = _device(regs, "regs")
+    _check(regs, "regs", torch.int8, (None, cfg.m), dev)
+    _check(lo, "lo", torch.int64, (None,), dev)
+    _check(hi, "hi", torch.int64, lo.shape, dev)
+    _check(keys, "keys", torch.int64, lo.shape, dev)
+    _check(log2w, "log2w", torch.float32, lo.shape, dev)
+    return sketch_array_update.update_regs(
+        lo, hi, log2w, keys, regs, salt=cfg.salt_h, r_min=cfg.r_min, r_max=cfg.r_max
+    )
+
+
+def window_union_op(cfg: SketchConfig, regs, head, w: int):
+    """K7: full int32[K, 2^b] histograms of the max-union of the last ``w``
+    epoch planes of the int8[E, K, m] ring (``head``: int32 0-dim tensor,
+    the ring slot of the current epoch; 1 <= w <= E)."""
+    dev = _device(regs, "regs")
+    _check(regs, "regs", torch.int8, (None, None, cfg.m), dev)
+    _check(head, "head", torch.int32, (), dev)
+    if not 1 <= int(w) <= regs.shape[0]:
+        raise ValueError(f"window w={w} out of range [1, E={regs.shape[0]}]")
+    return window_union.union_hists(regs, head, int(w), r_min=cfg.r_min, nb=cfg.num_bins)
 
 
 def qdyn_qr_op(cfg: SketchConfig, hist, weights):

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels K1–K4, operand for operand.
+"""Plain PyTorch versions of the kernels K1–K4, K6 and K7, operand for operand.
 
 Each function computes what its CUDA kernel computes, on the same operands,
 with PyTorch tensor ops. The wrappers run them for CPU tensors; the tests
@@ -14,20 +14,37 @@ from ..core import estimators, hashing
 from ..core.types import SketchConfig
 
 
+def _y_table(lo, hi, log2w, m: int, *, salt: int, r_min: int, r_max: int):
+    """float32[B, m] quantized values y_ij = clip(floor(log2 w_i - log2(-ln
+    u_ij)), r_min, r_max); a NaN y (masked or zero-weight row whose -ln u
+    rounded to 0) counts as r_min."""
+    j = torch.arange(m, dtype=torch.int64, device=lo.device)
+    e = hashing.neg_log_uniform((lo[:, None], hi[:, None], j[None, :]), salt)
+    y = torch.floor(log2w[:, None] - torch.log2(e))
+    return torch.clamp(torch.nan_to_num(y, nan=float(r_min)), float(r_min), float(r_max))
+
+
 def qsketch_update_ref(lo, hi, log2w, regs, *, salt: int, r_min: int, r_max: int):
     """K1: int8[m] registers max-folded with y_ij over the batch.
 
     lo/hi int64[B] id words, log2w float32[B] (-inf on masked rows),
-    regs int8[m]. y = clip(floor(log2 w - log2(-ln u)), r_min, r_max), a NaN
-    y (masked or zero-weight row whose -ln u rounded to 0) counts as r_min.
+    regs int8[m].
     """
     if lo.shape[0] == 0:
         return regs.clone()
-    j = torch.arange(regs.shape[0], dtype=torch.int64, device=regs.device)
-    e = hashing.neg_log_uniform((lo[:, None], hi[:, None], j[None, :]), salt)
-    y = torch.floor(log2w[:, None] - torch.log2(e))
-    y = torch.clamp(torch.nan_to_num(y, nan=float(r_min)), float(r_min), float(r_max))
+    y = _y_table(lo, hi, log2w, regs.shape[0], salt=salt, r_min=r_min, r_max=r_max)
     return torch.maximum(regs, y.amax(0).to(torch.int8))
+
+
+def sketch_array_update_ref(lo, hi, log2w, keys, regs, *, salt: int, r_min: int, r_max: int):
+    """K6: int8[K, m] registers with each batch row's y_i scatter-maxed into
+    row keys[i] (int64, clipped to [0, K)). Returns a new tensor."""
+    k, m = regs.shape
+    if lo.shape[0] == 0:
+        return regs.clone()
+    y = _y_table(lo, hi, log2w, m, salt=salt, r_min=r_min, r_max=r_max).to(torch.int32)
+    rows = torch.clamp(keys, 0, k - 1)[:, None].expand(-1, m)
+    return regs.to(torch.int32).scatter_reduce(0, rows, y, "amax").to(torch.int8)
 
 
 def qdyn_qr_ref(w, hist, scales, m: int):
@@ -53,3 +70,17 @@ def estimate_rows_ref(cfg: SketchConfig, regs):
     return estimators.newton_solve(
         cfg, estimators.histograms(cfg, regs), max_iters=30, tol=None
     )
+
+
+def window_union_ref(regs, head, w: int, *, r_min: int, nb: int):
+    """K7: full int32[K, nb] histograms of the max-union of the epoch planes
+    of int8[E, K, m] ``regs`` whose age (head - e) mod E is below ``w``
+    (``head`` an int32 0-dim tensor); bin v counts registers equal to
+    v + r_min, so each row sums to m."""
+    e, k, _ = regs.shape
+    age = torch.remainder(head.to(torch.int64) - torch.arange(e, device=regs.device), e)
+    floor = torch.full((), r_min, dtype=regs.dtype, device=regs.device)
+    union = torch.where((age < w)[:, None, None], regs, floor).amax(0)
+    idx = union.to(torch.int64) - r_min
+    out = torch.zeros((k, nb), dtype=torch.int32, device=regs.device)
+    return out.scatter_add_(1, idx, torch.ones_like(idx, dtype=torch.int32))

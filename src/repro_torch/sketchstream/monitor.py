@@ -1,4 +1,4 @@
-"""Stream telemetry monitors: the main-path surfaces of
+"""Stream telemetry monitors: the ported surfaces of
 ``repro/sketchstream/monitor.py``.
 
 * The scalar monitor (``MonitorState``, ``init`` / ``update`` /
@@ -6,9 +6,18 @@
   registers (kernel K1 on the card) — plus an occurrence counter. Full
   QSketch rather than Dyn because its registers are a plain max monoid:
   merging monitors that saw the same elements is exact (DESIGN.md §4.3).
+* The per-key monitor (``ArrayMonitorState``, ``init_array`` /
+  ``update_array`` / ``estimate_array`` / ``merge_array``): K full
+  QSketches in one register matrix (``core/sketch_array.py``, kernel K6 on
+  the card); keys are dense slots, or sparse 64-bit ids routed statelessly
+  through the key directory when ``dcfg`` is given.
 * ``DynArrayMonitor``: per-tenant weighted cardinality with O(1)-anytime
   reads — sparse 64-bit tenant ids through the key directory into a
   DynArray whose per-key martingales make ``estimate`` a pure O(K) read.
+* ``WindowMonitor``: the same sparse-key surface over an epoch ring
+  (``core/window_array.py``): estimates answer "weighted distinct traffic
+  in the last w <= E epochs"; ``rotate`` advances the epoch clock and ages
+  cold directory slots; the windowed MLE read runs kernel K7 on the card.
 
 ``tenant_metrics`` / ``directory_metrics`` publish the tenant surface's
 scalars to the port's metrics registry (``obs/metrics.py``).
@@ -24,9 +33,13 @@ from typing import NamedTuple
 
 import torch
 
-from ..core import dyn_array, estimation, estimators, key_directory, qsketch
+from ..core import (
+    dyn_array, estimation, estimators, key_directory, qsketch, sketch_array, window_array,
+)
 from ..core.key_directory import DirectoryConfig, DirectoryState
-from ..core.types import DynArrayState, QSketchState, SketchConfig, resolve_device
+from ..core.types import (
+    DynArrayState, QSketchState, SketchArrayState, SketchConfig, WindowArrayState, resolve_device,
+)
 from ..obs import metrics as obs_metrics
 
 _M_TENANT_SEEN = obs_metrics.gauge(
@@ -42,11 +55,20 @@ _M_TENANT_WEIGHT = obs_metrics.gauge(
     "tenant_weight_total", "sum of per-tenant anytime estimates",
     labels=("monitor",))
 
+_M_TENANT_WINDOW_WEIGHT = obs_metrics.gauge(
+    "tenant_window_weight", "sum of per-tenant windowed anytime estimates",
+    labels=("monitor",))
+_M_TENANT_WINDOW_EPOCH = obs_metrics.gauge(
+    "tenant_window_epoch", "monotone epoch clock of the window ring",
+    labels=("monitor",))
+
 _TENANT_FAMILIES = {
     "tenant_elements_seen": _M_TENANT_SEEN,
     "tenant_slots_claimed": _M_TENANT_SLOTS,
     "tenant_collision_rate": _M_TENANT_COLLISIONS,
     "tenant_weight_total": _M_TENANT_WEIGHT,
+    "tenant_window_weight": _M_TENANT_WINDOW_WEIGHT,
+    "tenant_window_epoch": _M_TENANT_WINDOW_EPOCH,
 }
 
 
@@ -135,6 +157,55 @@ def estimate(cfg: SketchConfig, state: MonitorState) -> torch.Tensor:
 def merge(cfg: SketchConfig, a: MonitorState, b: MonitorState) -> MonitorState:
     """Exact union-stream merge (max monoid)."""
     return MonitorState(regs=torch.maximum(a.regs, b.regs), n_seen=a.n_seen + b.n_seen)
+
+
+class ArrayMonitorState(NamedTuple):
+    """Per-key monitor: K QSketch rows + a live-element counter."""
+
+    regs: torch.Tensor  # int8[K, m]
+    n_seen: torch.Tensor  # int32 live-element counter across all keys
+
+
+def init_array(cfg: SketchConfig, k: int, device="cuda") -> ArrayMonitorState:
+    """Fresh per-key monitor: K empty sketch rows, zero elements seen."""
+    regs = sketch_array.init(cfg, k, device).regs
+    return ArrayMonitorState(regs=regs, n_seen=torch.zeros((), dtype=torch.int32, device=regs.device))
+
+
+def update_array(
+    cfg: SketchConfig,
+    state: ArrayMonitorState,
+    keys,
+    ids,
+    weights=None,
+    mask=None,
+    dcfg: DirectoryConfig | None = None,
+) -> ArrayMonitorState:
+    """One fused keyed update: element i lands in sketch row keys[i] (the
+    register matrix is updated in place; kernel K6 on the card).
+
+    keys/ids/weights/mask share a leading shape and are flattened. With
+    ``dcfg`` set, ``keys`` are sparse 64-bit tenant ids (an integer tensor
+    or a (lo, hi) pair) routed statelessly through the key directory;
+    without it they are dense slots in [0, K).
+    """
+    keys = _flatten_keys(keys)
+    if dcfg is not None:
+        keys = key_directory.route_slots(dcfg, keys)
+    ids, w, mask, n_live = _flatten(ids, weights, mask)
+    st = sketch_array.update(cfg, SketchArrayState(regs=state.regs), keys, ids, w, mask=mask)
+    return ArrayMonitorState(regs=st.regs, n_seen=state.n_seen + n_live)
+
+
+def estimate_array(cfg: SketchConfig, state: ArrayMonitorState) -> torch.Tensor:
+    """All K weighted cardinalities: one batched histogram MLE, Ĉ[K]."""
+    return sketch_array.estimate_all(cfg, SketchArrayState(regs=state.regs))
+
+
+def merge_array(cfg: SketchConfig, a: ArrayMonitorState, b: ArrayMonitorState) -> ArrayMonitorState:
+    """Row-wise exact union merge across shards/pods."""
+    merged = sketch_array.merge(SketchArrayState(regs=a.regs), SketchArrayState(regs=b.regs))
+    return ArrayMonitorState(regs=merged.regs, n_seen=a.n_seen + b.n_seen)
 
 
 class DynArrayMonitorState(NamedTuple):
@@ -227,4 +298,103 @@ class DynArrayMonitor:
         return tenant_metrics(
             "dyn_array", state.n_seen, state.directory,
             tenant_weight_total=state.chats.sum(),
+        )
+
+
+class WindowMonitorState(NamedTuple):
+    """State of a WindowMonitor."""
+
+    window: WindowArrayState  # epoch ring + cached union (core/window_array)
+    directory: DirectoryState  # key-collision telemetry + aging stamps
+    n_seen: torch.Tensor  # int32 live-element counter across all tenants
+
+
+class WindowMonitor:
+    """Per-tenant SLIDING-WINDOW weighted-cardinality telemetry.
+
+    The ``DynArrayMonitor`` surface backed by ``core/window_array.py``:
+    estimates answer "weighted distinct traffic in the last w <= E epochs",
+    not "since init". Two verbs beyond the shared surface:
+
+    * ``rotate(state)`` closes the current epoch (the caller's clock),
+      evicting the oldest epoch once the ring is full, and ages directory
+      slots untouched for ``evict_after`` epochs (0 disables aging);
+    * ``estimate(state, w=None)``: ``w=None`` is the O(K) anytime read of
+      the full-ring window; an integer w is the windowed histogram-MLE read
+      over the last w epochs (kernel K7 on the card for w < E).
+
+    ``update`` and ``rotate`` change the state's tensors in place and return
+    them in a new tuple. The instance is configuration (and the device).
+    """
+
+    def __init__(self, cfg: SketchConfig, dcfg: DirectoryConfig, n_epochs: int, *,
+                 evict_after: int = 0, device="cuda"):
+        if evict_after < 0:
+            raise ValueError("evict_after must be >= 0 (0 disables aging)")
+        self.cfg = cfg
+        self.dcfg = dcfg
+        self.n_epochs = int(n_epochs)
+        self.evict_after = int(evict_after)
+        self.device = resolve_device(device)
+
+    @classmethod
+    def for_capacity(cls, cfg: SketchConfig, capacity: int, n_epochs: int, *, seed: int | None = None,
+                     pinned: tuple = (), evict_after: int = 0, device="cuda"):
+        """Build with a fresh directory config of ``capacity`` slots."""
+        dcfg = DirectoryConfig(capacity=capacity, seed=cfg.seed if seed is None else seed, pinned=pinned)
+        return cls(cfg, dcfg, n_epochs, evict_after=evict_after, device=device)
+
+    def init(self) -> WindowMonitorState:
+        """Fresh epoch ring + empty directory telemetry on the monitor's device."""
+        return WindowMonitorState(
+            window=window_array.init(self.cfg, self.dcfg.capacity, self.n_epochs, self.device),
+            directory=key_directory.init(self.dcfg, self.device),
+            n_seen=torch.zeros((), dtype=torch.int32, device=self.device),
+        )
+
+    def update(self, state: WindowMonitorState, tenant_keys, ids, weights=None, mask=None) -> WindowMonitorState:
+        """Fold a keyed batch into the CURRENT epoch: tenant_keys are sparse
+        ids (an integer tensor or a (lo, hi) pair), flattened together with
+        ids/weights/mask. Routed slots are stamped with the epoch clock."""
+        keys = _flatten_keys(tenant_keys)
+        ids, w, mask, n_live = _flatten(ids, weights, mask)
+        win, dir_state = window_array.update_tenants(
+            self.cfg, self.dcfg, state.window, state.directory, keys, ids, w, mask=mask,
+        )
+        return WindowMonitorState(window=win, directory=dir_state, n_seen=state.n_seen + n_live)
+
+    def rotate(self, state: WindowMonitorState) -> WindowMonitorState:
+        """Advance the epoch clock (evicting the oldest epoch once the ring
+        is full); age cold directory slots if configured."""
+        win = window_array.rotate(self.cfg, state.window)
+        directory = state.directory
+        if self.evict_after:
+            directory, _ = key_directory.evict_older_than(
+                self.dcfg, directory, win.epoch_id - self.evict_after
+            )
+        return WindowMonitorState(window=win, directory=directory, n_seen=state.n_seen)
+
+    def estimate(self, state: WindowMonitorState, w: int | None = None) -> torch.Tensor:
+        """Ĉ[K] over the trailing window: ``w=None`` the anytime O(K) read of
+        the full ring, an int w in [1, E] the union MLE over the last w."""
+        if w is None:
+            return window_array.estimate_ring_anytime(state.window)
+        return window_array.estimate_window(self.cfg, state.window, w)
+
+    def merge(self, a: WindowMonitorState, b: WindowMonitorState) -> WindowMonitorState:
+        """Cross-pod union of ring-aligned windows: per-epoch register max +
+        MLE re-estimates, directory merge."""
+        return WindowMonitorState(
+            window=window_array.merge(self.cfg, a.window, b.window),
+            directory=key_directory.merge(a.directory, b.directory),
+            n_seen=a.n_seen + b.n_seen,
+        )
+
+    def metrics(self, state: WindowMonitorState) -> dict:
+        """Per-step scalars: stream + directory health, the window clock and
+        the total windowed weight (an O(K) sum of the anytime reads)."""
+        return tenant_metrics(
+            "window", state.n_seen, state.directory,
+            tenant_window_weight=state.window.union_chats.sum(),
+            tenant_window_epoch=state.window.epoch_id.clone(),  # the ring's is updated in place
         )

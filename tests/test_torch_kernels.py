@@ -216,12 +216,17 @@ def test_fronts_reject_bad_operands():
 
 def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch):
     """Without a GPU an entry point raises unless given device="cpu"."""
-    from repro_torch.core import dyn_array, qsketch_dyn
-    from repro_torch.sketchstream import monitor
+    from repro_torch.core import dyn_array, qsketch_dyn, sketch_array, window_array
+    from repro_torch.sketchstream import anomaly, monitor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = SketchConfig(m=64)
     for make in (
+        lambda: sketch_array.init(cfg, 4),
+        lambda: window_array.init(cfg, 4, 2),
+        lambda: monitor.init_array(cfg, 4),
+        lambda: monitor.WindowMonitor.for_capacity(cfg, 16, 2),
+        lambda: anomaly.init(4),
         lambda: qsketch.init(cfg),
         lambda: qsketch_dyn.init(cfg),
         lambda: dyn_array.init(cfg, 4),
@@ -235,10 +240,18 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch):
 
 def test_launch_counts_stay_zero_on_cpu():
     """CPU tensors take the plain versions: no kernel is launched."""
+    from repro_torch.core import sketch_array, window_array
+
     ops.reset_launch_counts()
     cfg = SketchConfig(m=64)
     st = qsketch.init(cfg, device="cpu")
     qsketch.update(cfg, st, torch.arange(10), torch.ones(10))
     estimation.estimate_rows(cfg, st.regs[None, :], solver="fused")
-    assert set(ops.launch_counts()) == {"qsketch_update", "qdyn_qr", "dyn_array_update", "estimate"}
+    sa = sketch_array.init(cfg, 3, device="cpu")
+    sketch_array.update(cfg, sa, torch.tensor([0, 2]), torch.arange(2), torch.ones(2))
+    ring = window_array.init(cfg, 3, 2, device="cpu")
+    window_array.estimate_window(cfg, ring, 1)
+    assert set(ops.launch_counts()) == {
+        "qsketch_update", "qdyn_qr", "dyn_array_update", "estimate", "sketch_array_update", "window_union",
+    }
     assert all(v == 0 for v in ops.launch_counts().values())
