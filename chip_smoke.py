@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--seed 0]
 
-Builds the six CUDA kernels of the port (K1 qsketch_update, K2 qdyn_qr,
-K3 dyn_array_update, K4 estimate, K6 sketch_array_update, K7
-window_union) from ``src/repro_torch/csrc``, then, at the README's
-configuration (m = 256, b = 8) and K = 2^20 tenants:
+Builds the eight CUDA kernels of the port (K1 qsketch_update, K2 qdyn_qr,
+K3 dyn_array_update, K4 estimate, K5 float_sketch_update, K6
+sketch_array_update, K7 window_union, K8 virtual_pool_route) from
+``src/repro_torch/csrc``, then, at the README's configuration (m = 256,
+b = 8) and K = 2^20 tenants:
 
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: time and ptxas report (registers, shared memory, spills);
@@ -22,13 +23,22 @@ configuration (m = 256, b = 8) and K = 2^20 tenants:
      ids on one mid-rank tenant at epoch 13, the anytime read and the
      AnomalyBank every epoch, and the windowed reads (w = 4 through K7,
      w = 8 from the cache) after the last epoch;
+  3c. the paper's five-method comparison (LM, FastGM, FastExpSketch,
+     QSketch, QSketch-Dyn through ``METHODS``; K1, K2, K5): RRMSE over
+     benchmarks/accuracy.py's quick profile and update throughput over
+     benchmarks/throughput.py's stream shape;
+  3d. the register-sharing virtual tier (K8, K3 on the hot rows): 2^20
+     Zipf tenants (benchmarks/virtual_dyn_array.py's stream, its full
+     profile's base and pinned count) into a 2^26-slot pool, the chunked
+     read of every tenant, the reference's accuracy gates, a promotion;
   4. kernels against their plain PyTorch versions on the card, at the
      paths' shapes and on their data;
-  5. where an update's time goes (torch.profiler): DynArray and
-     SketchArray batches;
+  5. where an update's time goes (torch.profiler): DynArray, SketchArray
+     and virtual-tier batches;
   6. CPU replay of a stream prefix: the card's state against the port's
      plain CPU path;
   6b. CPU replay of the window path (K = 2^16, E = 4, the ring wrapped);
+  6c. CPU replay of the virtual path (a 2^20-slot pool, 64 pinned);
   7. accuracy against the exact weighted cardinality of the stream.
 
 Each path runs with the launch counts set to 0 just before it and read
@@ -61,6 +71,22 @@ N_EPOCHS_RING = 8
 N_EPOCHS = 16
 FLOOD_EPOCH = 13
 FLOOD_RANK = 50
+# Five-method comparison: benchmarks/accuracy.py's quick profile (lines
+# 31-34) and benchmarks/throughput.py's stream (n_stream // 8 distinct
+# gamma-weighted elements with Zipf repeats).
+ACC_MS = (64, 256, 1024)
+ACC_N = 20_000
+ACC_RUNS = 20
+TPUT_STREAM = 4_194_304
+# Virtual tier: benchmarks/virtual_dyn_array.py's stream at the smoke's
+# tenant count with its full profile's base and pinned count; the pool that
+# VirtualConfig's docstring sizes for 1e7 tenants (2^26 slots, 64 MiB).
+VIRT_TENANTS = 2**20
+VIRT_BASE = 8000.0
+VIRT_SEED = 3
+VIRT_POOL = 2**26
+VIRT_PINNED = 64
+VIRT_READ_CHUNK = 2**16  # tenants per estimate call
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, at its 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -69,6 +95,14 @@ F32_OPS_PER_S = 67e12
 # K1 per (element, register) pair — third murmur round 7, fmix 8,
 # unit map 3, negate 1, logf 1, log2f 1, subtract 1, floor 1, clip 2, max 1.
 K1_OPS_PER_PAIR = 27
+# K5 per (element, register) pair — third murmur round 7, fmix 8, unit map
+# 3, logf 1, negate 1, divide 1, weight test 1, min 1.
+K5_OPS_PER_PAIR = 23
+# K8 per element — three hashes (two words with salt_g, three with salt_h
+# and with salt_pool: 22 + 29 + 29), unit map 3, logf, negate, log2f,
+# subtract, floor 5, the r_max clamp and the non-finite tests 4, two
+# high-word products 2.
+K8_OPS_PER_ELEMENT = 94
 # K2/K3 per (element, occupied bin): multiply, negate, exp, multiply-add.
 QR_OPS_PER_BIN = 4
 # K4 per (row, occupied bin, Newton evaluation): f and f' terms (2 z
@@ -358,6 +392,193 @@ def window_checks(cfg, stream, data, flood, win, n, capacity):
     check(len(win["flagged_at"]) > 0, "the flood tenant is among the top-5 alerts at some epoch >= 13")
 
 
+def run_methods(dev, batch, *, ms=ACC_MS, n=ACC_N, runs=ACC_RUNS, n_stream=TPUT_STREAM):
+    """Phase 3c: every ``METHODS`` entry on the card. Accuracy as
+    benchmarks/accuracy.py's register sweep runs it (one update of n
+    distinct elements per run; ``cfg.seed = 1000 + r``, stream seed r),
+    each run's estimate against its own stream's truth; throughput over
+    benchmarks/throughput.py's stream at m = 256 in batches of ``batch``."""
+    import torch
+
+    from repro_torch.core import METHODS, SketchConfig
+    from repro_torch.data import synthetic
+
+    out = {"rrmse": {}, "eps": {}}
+    t0 = time.perf_counter()
+    for dist in synthetic.DISTRIBUTIONS:
+        streams = []
+        for r in range(runs):
+            ids, w, true_c = synthetic.stream(dist, n, seed=r)
+            streams.append((torch.from_numpy(ids.astype(np.int64)).to(dev), torch.from_numpy(w).to(dev), true_c))
+        for m in ms:
+            for name, meth in METHODS.items():
+                rel = []
+                for r, (ids, w, true_c) in enumerate(streams):
+                    cfg = SketchConfig(m=m, b=8, seed=1000 + r)
+                    st = meth["update"](cfg, meth["init"](cfg, device=dev), ids, w)
+                    rel.append((float(meth["estimate"](cfg, st)) - true_c) / true_c)
+                out["rrmse"][(name, dist, m)] = float(np.sqrt(np.mean(np.square(rel))))
+    out["accuracy_s"] = time.perf_counter() - t0
+
+    ids, w, _ = synthetic.with_repeats("gamma", n_stream // 8, n_stream)
+    ids, w = torch.from_numpy(ids.astype(np.int64)).to(dev), torch.from_numpy(w).to(dev)
+    cfg = SketchConfig(m=256, b=8)
+    for name, meth in METHODS.items():
+        st = meth["init"](cfg, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        for i in range(0, n_stream, batch):
+            st = meth["update"](cfg, st, ids[i : i + batch], w[i : i + batch])
+        sync(dev)
+        out["eps"][name] = n_stream / (time.perf_counter() - t0)
+    out["lm_batch"] = (ids[:batch], w[:batch])
+    return out
+
+
+def methods_checks(meth_out):
+    """Phase 3c's gate: every method within twice Eq. 2's Cramér-Rao bound
+    1/sqrt(m-2) (20 runs give the sample RRMSE a relative standard error of
+    about 16 %)."""
+    from repro_torch.core import METHODS
+    from repro_torch.data import synthetic
+
+    worst = 0.0
+    for dist in synthetic.DISTRIBUTIONS:
+        for m in ACC_MS:
+            bound = 1.0 / np.sqrt(m - 2)
+            row = " ".join(f"{name} {meth_out['rrmse'][(name, dist, m)]:.4f}" for name in METHODS)
+            print(f"    {dist:7s} m={m:4d} (1/sqrt(m-2) = {bound:.4f}): RRMSE {row}")
+            for name in METHODS:
+                worst = max(worst, meth_out["rrmse"][(name, dist, m)] / bound)
+    print(f"  largest RRMSE over 1/sqrt(m-2): {worst:.3f} (gate 2)")
+    check(worst <= 2.0, "every method's RRMSE within 2/sqrt(m-2)")
+
+
+def virtual_stream(n_tenants, base, seed):
+    """benchmarks/virtual_dyn_array.py's ``_zipf_stream``: per-tenant element
+    counts max(base/rank^1.05, 4), globally unique element ids, weights
+    U(0.5, 1.5), shuffled into one stream. Returns (tenant ids uint64 by
+    rank, tenant rank of each element, element ids uint32, weights float32,
+    exact weight per tenant)."""
+    rng = np.random.default_rng(seed)
+    tids = rng.integers(0, 1 << 63, n_tenants, dtype=np.uint64)
+    sizes = np.maximum(base / (np.arange(n_tenants) + 1.0) ** 1.05, 4.0).astype(np.int64)
+    tidx = np.repeat(np.arange(n_tenants, dtype=np.int32), sizes)
+    n = tidx.shape[0]
+    ids = rng.permutation(np.arange(n, dtype=np.uint32))
+    w = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    truth = np.bincount(tidx, weights=w.astype(np.float64), minlength=n_tenants)
+    order = rng.permutation(n)
+    return tids, tidx[order], ids[order], w[order], truth
+
+
+def virtual_to_device(vs, dev):
+    import torch
+
+    tids, tidx, ids, w, _ = vs
+    t = torch.from_numpy(tids[tidx].view(np.int64)).to(dev)
+    return {"t_lo": t & 0xFFFFFFFF, "t_hi": (t >> 32) & 0xFFFFFFFF,
+            "ids": torch.from_numpy(ids.astype(np.int64)).to(dev), "w": torch.from_numpy(w).to(dev)}
+
+
+def run_virtual_path(cfg, dev, vs, vdata, batch, pool_size=VIRT_POOL):
+    """Phase 3d: the stream through a ``VirtualDynMonitor`` (the largest
+    VIRT_PINNED tenants pinned), then the read of every tenant in chunks."""
+    import torch
+
+    from repro_torch.core import key_directory
+    from repro_torch.sketchstream import monitor
+
+    tids = vs[0]
+    n = vdata["w"].shape[0]
+    mon = monitor.VirtualDynMonitor.for_pool(cfg, pool_size, pinned=tuple(int(t) for t in tids[:VIRT_PINNED]),
+                                             device=dev)
+    state = mon.init()
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(0, n, batch):
+        sl = slice(i, i + batch)
+        state = mon.update(state, (vdata["t_lo"][sl], vdata["t_hi"][sl]), vdata["ids"][sl], vdata["w"][sl])
+    sync(dev)
+    update_s = time.perf_counter() - t0
+    q_lo, q_hi = key_directory.split_uint64(tids, dev)
+    t0 = time.perf_counter()
+    est = torch.cat([mon.estimate(state, (q_lo[i : i + VIRT_READ_CHUNK], q_hi[i : i + VIRT_READ_CHUNK]))
+                     for i in range(0, len(tids), VIRT_READ_CHUNK)])
+    sync(dev)
+    return {"mon": mon, "state": state, "est": est, "update_s": update_s,
+            "read_ms": (time.perf_counter() - t0) * 1e3, "metrics": {k: float(v) for k, v in mon.metrics(state).items()}}
+
+
+def virtual_checks(cfg, dev, vs, virt, batch):
+    """Phase 3d's gates: the JAX package's own (tests/test_virtual_dyn_array.py)
+    and the DynArray gates of this script, fixed before any run."""
+    import torch
+
+    from repro_torch.core import dyn_array, estimation, key_directory
+    from repro_torch.core import virtual_dyn_array as vda
+
+    tids, tidx, ids, w, truth = vs
+    mon, st = virt["mon"], virt["state"].array
+    est = virt["est"].cpu().numpy().astype(np.float64)
+    n_tenants = len(tids)
+    check(bool(np.isfinite(est).all()) and est.shape == (n_tenants,), "one finite estimate per tenant")
+    hist_ok = bool(torch.equal(st.pool_hist, vda.rebuild_pool_hist(cfg, st.pool)))
+    print(f"  pool_hist equals rebuild_pool_hist: {hist_ok}; sum {int(st.pool_hist.sum())}")
+    check(hist_ok and int(st.pool_hist.sum()) == VIRT_POOL, "the pool histogram is the pool's, summing to M")
+    tail_w = float(truth[VIRT_PINNED:].sum())
+    w_tail = float(st.w_tail)
+    print(f"  w_tail {w_tail:.1f} against the float64 tail weight {tail_w:.1f} "
+          f"(relative {abs(w_tail - tail_w) / tail_w:.3e}); n_tail {int(st.n_tail)}")
+    check(abs(w_tail - tail_w) <= 1e-4 * tail_w, "w_tail within rtol 1e-4 of the exact tail weight")
+
+    rel = np.abs(est - truth) / truth
+    pin_med, pin_p90 = float(np.median(rel[:VIRT_PINNED])), float(np.quantile(rel[:VIRT_PINNED], 0.9))
+    floor = float(vda.noise_floor(cfg, mon.vcfg, st))
+    above = np.flatnonzero((np.arange(n_tenants) >= VIRT_PINNED) & (truth > 2 * floor))
+    check(len(above) > 0, "some tail tenants lie above 2x the noise floor")
+    v_err = float(rel[above].mean())
+    print(f"  pinned tenants (exact martingales): median relative error {pin_med:.5f}, p90 {pin_p90:.5f}")
+    print(f"  noise floor {floor:.4f} weight; {len(above)} tail tenants above 2x the floor, mean relative "
+          f"error {v_err:.5f}")
+
+    # The benchmark's bar: the same tenants' dedicated noise-free rows (a
+    # DynArray fed only their elements), read through the same solve.
+    row_of = np.full(n_tenants, -1, np.int64)
+    row_of[above] = np.arange(len(above))
+    sel = np.flatnonzero(row_of[tidx] >= 0)
+    dense = dyn_array.init(cfg, len(above), dev)
+    keys = torch.from_numpy(row_of[tidx[sel]]).to(dev)
+    ids_t, w_t = torch.from_numpy(ids[sel].astype(np.int64)).to(dev), torch.from_numpy(w[sel]).to(dev)
+    for i in range(0, len(sel), batch):
+        dense = dyn_array.update_batch(cfg, dense, keys[i : i + batch], ids_t[i : i + batch], w_t[i : i + batch])
+    d_est = estimation.estimate_rows_virtual(cfg, dense.regs).cpu().numpy().astype(np.float64)
+    d_err = float((np.abs(d_est - truth[above]) / truth[above]).mean())
+    print(f"  benchmark bar: tail above 2x the floor, virtual {v_err:.5f} against the dense register-only "
+          f"read {d_err:.5f} (within 2x: {v_err <= 2.0 * max(d_err, 1e-3)})")
+
+    ghosts = np.random.default_rng(99).integers(0, 1 << 63, 64, dtype=np.uint64)
+    ghost_med = float(virt["mon"].estimate(virt["state"], key_directory.split_uint64(ghosts, dev)).median())
+    print(f"  64 unseen tenants: median estimate {ghost_med:.4f} (floor {floor:.4f})")
+
+    # Promote the largest tail tenant (epoch fence) and feed it fresh ids.
+    riser = int(tids[VIRT_PINNED])
+    mon2, st2 = mon.promote(virt["state"], riser)
+    rng = np.random.default_rng(5)
+    w2 = rng.uniform(0.5, 1.5, 4096).astype(np.float32)
+    fresh = torch.arange(len(ids), len(ids) + 4096, device=dev)
+    st2 = mon2.update(st2, key_directory.split_uint64(np.full(4096, riser, np.uint64), dev), fresh,
+                      torch.from_numpy(w2).to(dev))
+    resumed = float(mon2.estimate(st2, key_directory.split_uint64([riser], dev))[0])
+    exact = float(w2.astype(np.float64).sum())
+    print(f"  promoted rank {VIRT_PINNED}, then 4096 fresh elements: estimate {resumed:.2f} against "
+          f"{exact:.2f} (relative {abs(resumed - exact) / exact:.5f})")
+    check(pin_med <= 0.1 and pin_p90 <= 0.3, "pinned tenants' anytime accuracy")
+    check(v_err < 0.5, "tail above 2x the noise floor: mean relative error < 0.5")
+    check(ghost_med <= floor, "unseen tenants read at most the noise floor")
+    check(abs(resumed - exact) <= 0.2 * exact, "a promoted tenant reads its post-promotion weight")
+
+
 def window_replay(cfg, data, dev, capacity, batch, e=4, n_epochs=5):
     """Phase 6b: a prefix of the window path on the card and on the CPU —
     one batch per epoch and a rotate between epochs, so the E-th rotate
@@ -408,6 +629,101 @@ def window_replay(cfg, data, dev, capacity, batch, e=4, n_epochs=5):
     check(ok, "card and CPU window chats or reads differ beyond rtol 1e-5")
 
 
+def virtual_replay(cfg, vs, vdata, dev, batch, pool_size=2**20, n_batches=4, n_read=8192):
+    """Phase 6c: a prefix of the virtual stream through the same monitor
+    (a smaller pool, the same pinned tenants) on the card and on the CPU:
+    pool, pool histogram, counters and hot rows bit for bit; w_tail, the
+    hot chats, the tail's row solves (on the card's gathered rows of the
+    ``n_read`` largest tail tenants) and the pool calibration to rtol 1e-5."""
+    import torch
+
+    from repro_torch.core import estimation, estimators, key_directory
+    from repro_torch.core import virtual_dyn_array as vda
+    from repro_torch.sketchstream import monitor
+
+    cpu = torch.device("cpu")
+    pinned = tuple(int(t) for t in vs[0][:VIRT_PINNED])
+    states, mons = [], []
+    for d in (dev, cpu):
+        mon = monitor.VirtualDynMonitor.for_pool(cfg, pool_size, pinned=pinned, device=d)
+        mons.append(mon)
+        st = mon.init()
+        t0 = time.perf_counter()
+        for i in range(n_batches):
+            sl = slice(i * batch, (i + 1) * batch)
+            st = mon.update(st, (vdata["t_lo"][sl].to(d), vdata["t_hi"][sl].to(d)), vdata["ids"][sl].to(d),
+                            vdata["w"][sl].to(d))
+        sync(d)
+        print(f"  {d.type}: {n_batches * batch} elements into a {pool_size}-slot pool in "
+              f"{time.perf_counter() - t0:.3f} s")
+        states.append(st)
+    b, a = states
+    equal = all(torch.equal(getattr(b.array, f).cpu(), getattr(a.array, f)) for f in ("pool", "pool_hist", "n_tail"))
+    equal &= torch.equal(b.array.hot.regs.cpu(), a.array.hot.regs)
+    equal &= torch.equal(b.array.hot.hists.cpu(), a.array.hot.hists) and torch.equal(b.n_seen.cpu(), a.n_seen)
+    vcfg = mons[0].vcfg
+    rows = vda.virtual_rows(cfg, vcfg, b.array, *key_directory.split_uint64(vs[0][VIRT_PINNED:VIRT_PINNED + n_read], dev))
+    tcfg = vda.tail_config(cfg, vcfg)
+    chat_d, chat_c = estimation.estimate_rows_virtual(tcfg, rows).cpu(), estimation.estimate_rows_virtual(tcfg, rows.cpu())
+    off, ties = grid_flips(tcfg, rows, chat_d, chat_c)
+    print(f"  tail row solves ({n_read} tenants): {off.numel()} rows beyond rtol 1e-5, "
+          f"{int(ties.sum())} of them near ties of the grid")
+    for i in range(min(8, off.numel())):
+        r = int(off[i])
+        h = estimators.histograms(tcfg, rows[r:r + 1].cpu())[0]
+        bins = {int(k) + cfg.r_min: int(h[k]) for k in torch.nonzero(h)[:, 0]}
+        print(f"    row {r}: card {float(chat_d[r])!r} cpu {float(chat_c[r])!r} near tie {bool(ties[i])}; "
+              f"histogram {{register value: count}} {bins}")
+    check(bool(ties.all()), "a card/CPU tail row solve differs beyond rtol 1e-5 off a grid near tie")
+    keep = torch.ones_like(chat_c, dtype=torch.bool)
+    keep[off] = False
+    close = {"w_tail": (b.array.w_tail.cpu(), a.array.w_tail), "hot chats": (b.array.hot.chats.cpu(), a.array.hot.chats),
+             "tail row solves off the near ties": (chat_d[keep], chat_c[keep]),
+             "pool calibration": (vda.pool_calibration(cfg, vcfg, b.array).cpu(),
+                                  vda.pool_calibration(cfg, mons[1].vcfg, a.array))}
+    ok = True
+    for name, (x, y) in close.items():
+        good = bool(torch.allclose(x, y, rtol=1e-5, atol=1e-6))
+        ok &= good
+        print(f"  {name}: max relative difference {rel_err(x.reshape(-1), y.reshape(-1)):.3e} "
+              f"(allclose rtol 1e-5, atol 1e-6: {good})")
+    print(f"  integer state equal (pool, pool_hist, n_tail, hot regs and hists, n_seen): {equal}; "
+          f"raised slots {int((a.array.pool > cfg.r_min).sum())}")
+    check(equal, "card and CPU virtual integer state differ")
+    check(ok, "card and CPU w_tail, hot chats or tail reads differ beyond rtol 1e-5")
+
+
+def grid_flips(tcfg, rows, chat_d, chat_c):
+    """The rows whose virtual row solve on the card (``chat_d``) and on the
+    CPU (``chat_c``) differ beyond rtol 1e-5, and whether each is a near tie
+    of the grid argmax: the float64 log-likelihood margin between the two
+    devices' final grid points is within twice the float32 rounding of the
+    likelihood there (the largest difference of either device's float32
+    value from the float64 one). A real divergence of the likelihood fails
+    this; a flip at a near tie passes it."""
+    import torch
+
+    from repro_torch.core import estimation, estimators
+
+    off = torch.nonzero((chat_d - chat_c).abs() > 1e-5 * chat_c.abs() + 1e-6)[:, 0]
+    if not off.numel():
+        return off, torch.ones((0,), dtype=torch.bool)
+    hd = estimators.histograms(tcfg, rows[off.to(rows.device)])
+    h64 = hd.cpu()
+    lam64 = torch.log(tcfg.m / torch.clamp(h64[:, 0].double(), min=0.5))
+    # Final grid points are multiples of 1/32: recover them exactly.
+    grid64 = torch.stack([torch.round(32 * torch.log2(c[off].double() / (tcfg.m * lam64))) / 32
+                          for c in (chat_d, chat_c)], 1)
+    ll64 = estimation._virtual_loglik(tcfg, h64, lam64, grid64)
+    err = torch.zeros(off.numel(), dtype=torch.float64)
+    for h in (hd, h64):
+        t0 = h[:, 0].to(torch.float32)
+        lam = torch.log(torch.full_like(t0, float(tcfg.m)) / torch.clamp(t0, min=0.5))
+        ll = estimation._virtual_loglik(tcfg, h, lam, grid64.to(h.device, torch.float32))
+        err += (ll.cpu().double() - ll64).abs().max(1).values
+    return off, (ll64[:, 0] - ll64[:, 1]).abs() <= 2 * err
+
+
 def rel_err(got, want, floor=1e-6):
     """Largest relative difference over entries whose reference exceeds ``floor``."""
     sel = want.abs() > floor
@@ -451,13 +767,15 @@ def time_ms(fn, reps, dev, rounds=5, reset=None):
     return float(np.median(per_call))
 
 
-def kernel_checks(cfg, dev, data, main, sa, win, batch, launches):
+def kernel_checks(cfg, dev, data, main, sa, win, meth, virt, vdata, batch, launches):
     """Each kernel's wrapper against its plain version on the paths' shapes."""
     import torch
 
-    from repro_torch.core import estimators, key_directory
+    from repro_torch.core import baselines, estimators, key_directory
+    from repro_torch.core import virtual_dyn_array as vda
     from repro_torch.kernels import (
-        dyn_array_update, estimate, ops, qdyn_qr, qsketch_update, ref, sketch_array_update, window_union,
+        dyn_array_update, estimate, float_sketch_update, ops, qdyn_qr, qsketch_update, ref,
+        sketch_array_update, virtual_pool_update, window_union,
     )
     from repro_torch.sketchstream import monitor
 
@@ -578,6 +896,43 @@ def kernel_checks(cfg, dev, data, main, sa, win, batch, launches):
           lambda: ref.window_union_ref(ring, head, 4, r_min=cfg.r_min, nb=cfg.num_bins), 10,
           4 * k7 * m7 + k7 * cfg.num_bins * 4 + 4, 4 * k7 * m7 + k7 * m7,
           extra=f" ring=({e}, {k7}, {m7}) head=2 w=1,4,7 equal={equal}")
+
+    # K5: the phase-3c throughput stream's first batch folded into fresh
+    # LM registers at m = 256 (the path's first update; every register
+    # falls). The wrapper folds into a copy, so calls do not compound.
+    ids5, w5 = meth["lm_batch"]
+    lo5, hi5 = ids5 & 0xFFFFFFFF, (ids5 >> 32) & 0xFFFFFFFF
+    fresh5 = baselines.init(cfg, device=dev).regs
+    got = float_sketch_update.update_regs(lo5, hi5, w5, fresh5, salt=cfg.salt_h)
+    want = ref.float_sketch_update_ref(lo5, hi5, w5, fresh5, salt=cfg.salt_h)
+    err = float((got - want).abs().max())
+    # + 0.0 maps -0.0 (u = 1.0 gives e = -0.0; the kernel stores +0.0) to +0.0.
+    ulps = int(((got + 0.0).view(torch.int32) - (want + 0.0).view(torch.int32)).abs().max())
+    entry("float_sketch_update", "src/repro_torch/csrc/float_sketch_update.cu",
+          "src/repro/kernels/qsketch_update.py:123", err, bool(torch.equal(got, want)),
+          lambda: float_sketch_update.update_regs(lo5, hi5, w5, fresh5, salt=cfg.salt_h),
+          lambda: ref.float_sketch_update_ref(lo5, hi5, w5, fresh5, salt=cfg.salt_h), 50,
+          lo5.shape[0] * 20 + cfg.m * 8, lo5.shape[0] * cfg.m * K5_OPS_PER_PAIR,
+          extra=f" largest_ulp_difference={ulps} registers_lowered={int((got < fresh5).sum())}")
+
+    # K8: the phase-3d stream's first batch under the path's geometry.
+    vcfg = virt["mon"].vcfg
+    sl8 = slice(0, batch)
+    args8 = [vdata["ids"][sl8] & 0xFFFFFFFF, (vdata["ids"][sl8] >> 32) & 0xFFFFFFFF,
+             vdata["t_lo"][sl8].contiguous(), vdata["t_hi"][sl8].contiguous(), torch.log2(vdata["w"][sl8])]
+    kw8 = dict(salt_g=cfg.salt_g, salt_h=cfg.salt_h, salt_pool=vcfg.salt_pool, m=vda.tail_m(cfg, vcfg),
+               pool_size=vcfg.pool_size, r_min=cfg.r_min, r_max=cfg.r_max)
+    p8, y8 = virtual_pool_update.route(*args8, **kw8)
+    p8r, y8r = ref.virtual_pool_route_ref(*args8, **kw8)
+    equal8 = bool(torch.equal(p8, p8r)) and bool(torch.equal(y8, y8r))
+    err = float(max((p8 - p8r).abs().max(), (y8 - y8r).abs().max()))
+    b8 = args8[0].shape[0]
+    entry("virtual_pool_route", "src/repro_torch/csrc/virtual_pool_route.cu",
+          "src/repro/kernels/virtual_pool_update.py:38", err, equal8,
+          lambda: virtual_pool_update.route(*args8, **kw8),
+          lambda: ref.virtual_pool_route_ref(*args8, **kw8), 50,
+          b8 * (4 * 8 + 4 + 4 + 4), b8 * K8_OPS_PER_ELEMENT,
+          extra=f" p_and_y_equal={equal8} distinct_slots={int(torch.unique(p8).numel())}")
     return rows
 
 
@@ -705,7 +1060,7 @@ def accuracy(cfg, stream, data, main, n):
 def warm_up(cfg, dev, data, batch):
     """One small pass through every entry point (library loads, allocator,
     sort workspaces) before the measured run."""
-    from repro_torch.core import dyn_array, qsketch_dyn
+    from repro_torch.core import METHODS, dyn_array, qsketch_dyn
     from repro_torch.sketchstream import anomaly, monitor
 
     sl = slice(0, batch)
@@ -722,6 +1077,11 @@ def warm_up(cfg, dev, data, batch):
     ws = wmon.rotate(wmon.update(wmon.init(), keys, data["ids"][sl], data["w"][sl]))
     wmon.estimate(ws, w=2)
     anomaly.step(anomaly.AnomalyConfig(), anomaly.init(1024, device=dev), wmon.estimate(ws))
+    for meth in METHODS.values():
+        meth["estimate"](cfg, meth["update"](cfg, meth["init"](cfg, device=dev), data["ids"][sl], data["w"][sl]))
+    vmon = monitor.VirtualDynMonitor.for_pool(cfg, 2**16, pinned=(1, 2), device=dev)
+    vs = vmon.update(vmon.init(), keys, data["ids"][sl], data["w"][sl])
+    vmon.estimate(vs, (keys[0][:1024], keys[1][:1024]))
     sync(dev)
 
 
@@ -772,6 +1132,7 @@ def main(argv=None) -> int:
     cfg = SketchConfig(m=256, b=8)
     warm_up(cfg, dev, data, BATCH)
     print("phase 3: main path")
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     main_out = run_main_path(cfg, dev, data, N_ELEMENTS, BATCH, capacity)
@@ -792,8 +1153,10 @@ def main(argv=None) -> int:
     print(f"  launches: {json.dumps(launches)}")
     check(all(launches[k] > 0 for k in MAIN_KERNELS), "every kernel of the path must launch")
     check(int(st.n_seen) == N_ELEMENTS, "n_seen counts the stream")
+    print(f"  phase 3 took {time.perf_counter() - t_phase:.1f} s")
 
     print("phase 3a: per-key SketchArray monitor (K6)")
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     sa_out = run_sketch_array_path(cfg, dev, data, N_ELEMENTS, BATCH, capacity)
@@ -808,9 +1171,11 @@ def main(argv=None) -> int:
     check(sa_launches["sketch_array_update"] > 0, "K6 must launch on the SketchArray path")
     check(int(sa_out["state"].n_seen) == N_ELEMENTS, "n_seen counts the stream")
     sketch_array_checks(cfg, stream, data, sa_out, capacity)
+    print(f"  phase 3a took {time.perf_counter() - t_phase:.1f} s")
 
     print(f"phase 3b: windowed alerts (K7): ring E = {N_EPOCHS_RING}, {N_EPOCHS} epochs, "
           f"flood at epoch {FLOOD_EPOCH}")
+    t_phase = time.perf_counter()
     flood = flood_batch(stream, args.seed, BATCH, dev)
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
@@ -836,13 +1201,66 @@ def main(argv=None) -> int:
     check(int(win_out["state"].n_seen) == n_win, "n_seen counts the stream and the flood")
     window_checks(cfg, stream, data, flood, win_out, N_ELEMENTS, capacity)
 
+    print(f"  phase 3b took {time.perf_counter() - t_phase:.1f} s")
+
+    print("phase 3c: the paper's five-method comparison (K1, K2, K5)")
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    meth_out = run_methods(dev, BATCH)
+    meth_launches = ops.launch_counts()
+    print(f"  accuracy: {len(ACC_MS)} m x 3 distributions x 5 methods x {ACC_RUNS} runs of {ACC_N} distinct "
+          f"elements in {meth_out['accuracy_s']:.1f} s")
+    methods_checks(meth_out)
+    print("  update throughput, " + f"{TPUT_STREAM} elements (gamma, Zipf repeats over {TPUT_STREAM // 8}) "
+          f"in batches of {BATCH} at m = 256: "
+          + "; ".join(f"{k} {v:.1f} elements/s" for k, v in meth_out["eps"].items()))
+    print(f"  launches: {json.dumps(meth_launches)}")
+    check(all(meth_launches[k] > 0 for k in ("qsketch_update", "qdyn_qr", "float_sketch_update")),
+          "K1, K2 and K5 must launch on the five-method path")
+    print(f"  phase 3c took {time.perf_counter() - t_phase:.1f} s")
+
+    print(f"phase 3d: the virtual tier (K8, K3): {VIRT_TENANTS} tenants, {VIRT_POOL}-slot pool, "
+          f"{VIRT_PINNED} pinned")
+    t_phase = time.perf_counter()
+    vs = virtual_stream(VIRT_TENANTS, VIRT_BASE, VIRT_SEED)
+    vdata = virtual_to_device(vs, dev)
+    n_virt = len(vs[1])
+    print(f"  stream: {n_virt} elements, made in {time.perf_counter() - t_phase:.2f} s")
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    virt_out = run_virtual_path(cfg, dev, vs, vdata, BATCH)
+    virt_launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    from repro_torch.core import virtual_dyn_array as vda
+
+    vcfg = virt_out["mon"].vcfg
+    print(f"  VirtualDynMonitor.update: {n_virt} elements in {virt_out['update_s']:.4f} s = "
+          f"{n_virt / virt_out['update_s']:.1f} elements/s")
+    print(f"  estimate of all {VIRT_TENANTS} tenants in chunks of {VIRT_READ_CHUNK}: {virt_out['read_ms']:.2f} ms")
+    print(f"  metrics: {json.dumps(virt_out['metrics'])}")
+    print(f"  memory_bytes {vda.memory_bytes(cfg, vcfg)} against dense_memory_bytes(K = {VIRT_TENANTS}) "
+          f"{vda.dense_memory_bytes(cfg, VIRT_TENANTS)} "
+          f"({vda.dense_memory_bytes(cfg, VIRT_TENANTS) / vda.memory_bytes(cfg, vcfg):.1f}x)")
+    print(f"  peak device memory of the phase (earlier phases' state included): {peak / 2**30:.3f} GiB")
+    print(f"  launches: {json.dumps(virt_launches)}")
+    check(virt_launches["virtual_pool_route"] > 0 and virt_launches["dyn_array_update"] > 0,
+          "K8 and K3 must launch on the virtual path")
+    check(int(virt_out["state"].n_seen) == n_virt, "n_seen counts the stream")
+    virtual_checks(cfg, dev, vs, virt_out, BATCH)
+    print(f"  phase 3d took {time.perf_counter() - t_phase:.1f} s")
+
     launches = {**{k: launches[k] for k in MAIN_KERNELS},
+                "float_sketch_update": meth_launches["float_sketch_update"],
                 "sketch_array_update": sa_launches["sketch_array_update"],
-                "window_union": win_launches["window_union"]}
+                "window_union": win_launches["window_union"],
+                "virtual_pool_route": virt_launches["virtual_pool_route"]}
     print("phase 4: kernels against their plain versions on the card")
-    rows = kernel_checks(cfg, dev, data, main_out, sa_out, win_out, BATCH, launches)
+    t_phase = time.perf_counter()
+    rows = kernel_checks(cfg, dev, data, main_out, sa_out, win_out, meth_out, virt_out, vdata, BATCH, launches)
+    print(f"  phase 4 took {time.perf_counter() - t_phase:.1f} s")
 
     print("phase 5: where an update's time goes")
+    t_phase = time.perf_counter()
     from repro_torch.sketchstream import monitor
 
     def span(sl):
@@ -854,14 +1272,28 @@ def main(argv=None) -> int:
     profile_updates(lambda s, sl: monitor.update_array(cfg, s, *span(sl), dcfg=sa_out["dcfg"]),
                     lambda: monitor.init_array(cfg, capacity, device=dev), BATCH, dev)
 
+    def vspan(sl):
+        return (vdata["t_lo"][sl], vdata["t_hi"][sl]), vdata["ids"][sl], vdata["w"][sl]
+
+    print("  VirtualDynMonitor, into a fresh pool as the path began:")
+    profile_updates(lambda s, sl: virt_out["mon"].update(s, *vspan(sl)), virt_out["mon"].init, BATCH, dev)
+    print(f"  phase 5 took {time.perf_counter() - t_phase:.1f} s")
+
     print("phase 6: CPU replay")
+    t_phase = time.perf_counter()
     cpu_replay(cfg, data, dev, min(2**18, N_ELEMENTS), 2**16, BATCH)
 
     print("phase 6b: CPU replay of the window path")
     window_replay(cfg, data, dev, 2**16, BATCH)
 
+    print("phase 6c: CPU replay of the virtual path")
+    virtual_replay(cfg, vs, vdata, dev, BATCH)
+    print(f"  phases 6-6c took {time.perf_counter() - t_phase:.1f} s")
+
     print("phase 7: accuracy")
+    t_phase = time.perf_counter()
     accuracy(cfg, stream, data, main_out, N_ELEMENTS)
+    print(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
 
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -2,9 +2,10 @@
 
 ``from_jax_numpy(state, device)`` takes one of the JAX package's state
 NamedTuples — ``QSketchState``, ``DynState``, ``DynArrayState``,
-``SketchArrayState``, ``WindowArrayState``, ``DirectoryState``,
-``MonitorState``, ``ArrayMonitorState``, ``DynArrayMonitorState``,
-``WindowMonitorState`` or ``AnomalyBankState`` — with
+``SketchArrayState``, ``WindowArrayState``, ``FloatSketchState``,
+``VirtualDynArrayState``, ``DirectoryState``, ``MonitorState``,
+``ArrayMonitorState``, ``DynArrayMonitorState``, ``WindowMonitorState``,
+``VirtualDynMonitorState`` or ``AnomalyBankState`` — with
 numpy (or array-like) leaves, and returns the port's NamedTuple of the same
 name with tensors on ``device``. ``to_numpy(state)`` goes back: the port's
 NamedTuple with numpy leaves in the JAX package's dtypes, ready for
@@ -22,19 +23,22 @@ import torch
 
 from .core.key_directory import DirectoryState
 from .core.types import (
-    DynArrayState, DynState, QSketchState, SketchArrayState, WindowArrayState, resolve_device,
+    DynArrayState, DynState, FloatSketchState, QSketchState, SketchArrayState,
+    VirtualDynArrayState, WindowArrayState, resolve_device,
 )
 from .sketchstream.anomaly import AnomalyBankState
 from .sketchstream.monitor import (
-    ArrayMonitorState, DynArrayMonitorState, MonitorState, WindowMonitorState,
+    ArrayMonitorState, DynArrayMonitorState, MonitorState, VirtualDynMonitorState,
+    WindowMonitorState,
 )
 
 STATE_TYPES = {
     cls.__name__: cls
     for cls in (
         QSketchState, DynState, DynArrayState, SketchArrayState, WindowArrayState,
-        DirectoryState, MonitorState, ArrayMonitorState, DynArrayMonitorState,
-        WindowMonitorState, AnomalyBankState,
+        FloatSketchState, VirtualDynArrayState, DirectoryState, MonitorState,
+        ArrayMonitorState, DynArrayMonitorState, WindowMonitorState,
+        VirtualDynMonitorState, AnomalyBankState,
     )
 }
 _UINT32_FIELDS = {("DirectoryState", "fingerprints")}

@@ -2,6 +2,7 @@
 
 The port of ``repro/core/estimators.py``:
 
+* ``lm_estimate``    — Eq. 2 for the float min-register baselines;
 * ``histogram`` / ``histograms`` — register-value histograms (2^b bins);
 * ``qsketch_init``   — the Newton seed Ĉ0 = (m-1) / Σ 2^{-R[j]};
 * ``_f_and_fprime``  — score and derivative of the truncated quantized
@@ -24,6 +25,23 @@ import torch
 from .types import SketchConfig
 
 _EPS_Z = 1e-4  # series-switch threshold for z = C*s
+F32_MAX = float(np.finfo(np.float32).max)  # untouched float min-register
+
+
+def lm_estimate(regs: torch.Tensor) -> torch.Tensor:
+    """Unbiased estimator for LM/FastGM/FastExp float min-registers (Eq. 2):
+    Ĉ = (m-1) / Σ R[j].
+
+    A register still at its init sentinel (float32 max) was never touched.
+    If NO register was touched the stream is empty and the estimate is
+    exactly 0.0 (the sum at float32-max scale would otherwise give a tiny
+    nonzero value); partially touched sketches estimate through Eq. 2.
+    """
+    m = regs.shape[0]
+    untouched = regs.min() >= F32_MAX
+    total = regs.sum()
+    est = torch.full_like(total, float(m - 1)) / total  # a true division
+    return torch.where(untouched, torch.zeros_like(est), est)
 
 
 def histogram(cfg: SketchConfig, regs: torch.Tensor) -> torch.Tensor:

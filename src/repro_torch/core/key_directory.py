@@ -21,6 +21,7 @@ Representation: fingerprints are uint32 values held in int64 tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -121,18 +122,34 @@ def _fingerprint(dcfg: DirectoryConfig, lo, hi):
     return torch.where(fp == 0, torch.ones_like(fp), fp)
 
 
+def _order_key(lo, hi):
+    """int64 key that orders 64-bit ids (hi, lo) as unsigned values:
+    (hi - 2^31)·2^32 + lo, which stays inside the int64 range."""
+    return (hi - 2**31) * 2**32 + lo
+
+
+@functools.lru_cache(maxsize=32)
+def _pinned_table(pinned: tuple, device: torch.device):
+    """(sorted order keys int64[P], pinned slot of each int64[P]) on ``device``."""
+    keys, order = torch.sort(_order_key(*split_uint64([int(t) for t in pinned], device)), stable=True)
+    return keys, order
+
+
 def route_slots(dcfg: DirectoryConfig, keys) -> torch.Tensor:
     """Stateless tenant -> slot map, int64[B] in [0, capacity).
 
     ``keys`` is an integer tensor (see ``hashing.split_id64``) or a (lo, hi)
-    pair. Pinned tenants override to their dedicated slot.
+    pair. Pinned tenants override to their dedicated slot, found by one
+    binary search in a sorted device table of the pinned ids (a fixed
+    number of launches whatever the number of pinned tenants).
     """
     lo, hi = hashing.split_id64(keys)
     slots = dcfg.num_pinned + hashing.hash_mod((lo, hi), dcfg.salt_route, dcfg.num_hashed)
-    for i, t in enumerate(dcfg.pinned):
-        t = int(t)
-        hit = (lo == (t & 0xFFFFFFFF)) & (hi == (t >> 32))
-        slots = torch.where(hit, torch.full_like(slots, i), slots)
+    if dcfg.num_pinned:
+        table, pin_slot = _pinned_table(tuple(dcfg.pinned), lo.device)
+        key = _order_key(lo, hi)
+        at = torch.clamp(torch.searchsorted(table, key), max=dcfg.num_pinned - 1)
+        slots = torch.where(table[at] == key, pin_slot[at], slots)
     return slots
 
 

@@ -141,3 +141,32 @@ class WindowArrayState(NamedTuple):
     head: torch.Tensor  # int32 scalar, ring slot of the current epoch
     filled: torch.Tensor  # int32 scalar in [1, E], epochs live in the ring
     epoch_id: torch.Tensor  # int32 scalar, monotone epoch clock
+
+
+class VirtualDynArrayState(NamedTuple):
+    """Register-sharing virtual DynArray (core/virtual_dyn_array.py).
+
+    Tail tenant t's logical register j lives at ``pool[hash(t, j) mod M]``:
+    pool slots are written by many tenants, so a tail read subtracts the
+    expected contribution of other tenants' traffic at query time (Wang et
+    al., arXiv 1811.09126; DESIGN.md §8.9). Pinned hot tenants bypass the
+    pool and keep dedicated dense ``DynArrayState`` rows.
+
+    ``pool_hist`` is the FULL value histogram of the pool (bin ``v - r_min``
+    counts slots at value v, untouched r_min slots included; bins sum to
+    M). ``n_tail`` counts live tail element-occurrences folded in and
+    ``w_tail`` their exact total weight, the noise scale of the
+    cancellation. The scalars are 0-dim tensors on the state's device.
+    """
+
+    pool: torch.Tensor  # int8[M], shared tail register pool, init r_min
+    pool_hist: torch.Tensor  # int32[2^b], full value histogram of the pool
+    n_tail: torch.Tensor  # int32 scalar, live tail element-occurrences folded
+    w_tail: torch.Tensor  # float32 scalar, exact total live tail weight folded
+    hot: DynArrayState  # dedicated dense rows of the pinned hot tenants
+
+
+class FloatSketchState(NamedTuple):
+    """LM / FastGM / FastExpSketch state: float32 min-registers."""
+
+    regs: torch.Tensor  # float32[m], initialized to float32 max

@@ -1,4 +1,4 @@
-"""Validated fronts of the ported kernels (K1–K4, K6, K7).
+"""Validated fronts of the ported kernels (K1–K8).
 
 Each front takes the sketch configuration and the kernel's operands as the
 core modules hold them, checks them — every operand on one CPU or CUDA
@@ -28,9 +28,11 @@ from ..core.types import SketchConfig
 from . import (
     dyn_array_update,
     estimate,
+    float_sketch_update,
     qdyn_qr,
     qsketch_update,
     sketch_array_update,
+    virtual_pool_update,
     window_union,
 )
 
@@ -39,8 +41,10 @@ KERNELS = {
     "qdyn_qr": qdyn_qr.KERNEL,
     "dyn_array_update": dyn_array_update.KERNEL,
     "estimate": estimate.KERNEL,
+    "float_sketch_update": float_sketch_update.KERNEL,
     "sketch_array_update": sketch_array_update.KERNEL,
     "window_union": window_union.KERNEL,
+    "virtual_pool_route": virtual_pool_update.KERNEL,
 }
 
 QR_FLOOR = 1e-12  # q_R guard; only reachable when a sketch is fully saturated
@@ -98,6 +102,38 @@ def qsketch_update_op(cfg: SketchConfig, regs, lo, hi, log2w):
     _check(log2w, "log2w", torch.float32, lo.shape, dev)
     return qsketch_update.update_regs(
         lo, hi, log2w, regs, salt=cfg.salt_h, r_min=cfg.r_min, r_max=cfg.r_max
+    )
+
+
+def float_sketch_update_op(cfg: SketchConfig, regs, lo, hi, w):
+    """K5: float32[m] min-registers after folding a batch (rows with w <= 0
+    or NaN — masked rows carry w = -1 — are no-ops). lo/hi int64[B], w
+    float32[B], regs float32[m]."""
+    dev = _device(regs, "regs")
+    _check(regs, "regs", torch.float32, (cfg.m,), dev)
+    _check(lo, "lo", torch.int64, (None,), dev)
+    _check(hi, "hi", torch.int64, lo.shape, dev)
+    _check(w, "w", torch.float32, lo.shape, dev)
+    return float_sketch_update.update_regs(lo, hi, w, regs, salt=cfg.salt_h)
+
+
+def virtual_pool_route_op(cfg: SketchConfig, m_v: int, salt_pool: int, pool_size: int,
+                          lo, hi, t_lo, t_hi, log2w):
+    """K8: (p int32[B] pool slots, y int32[B] values) of a batch of
+    elements (lo/hi int64[B]) of tenants (t_lo/t_hi int64[B]) with log2
+    weights log2w float32[B], under the tail geometry: register choice
+    modulo ``m_v``, the quantization range and hash salts of ``cfg``, and
+    pool placement by ``salt_pool`` modulo ``pool_size``."""
+    dev = _device(lo, "lo")
+    _check(lo, "lo", torch.int64, (None,), dev)
+    for name, t in (("hi", hi), ("t_lo", t_lo), ("t_hi", t_hi)):
+        _check(t, name, torch.int64, lo.shape, dev)
+    _check(log2w, "log2w", torch.float32, lo.shape, dev)
+    if not 0 < m_v < 2**31 or not 0 < pool_size < 2**31:
+        raise ValueError(f"m_v={m_v} and pool_size={pool_size} must lie in (0, 2^31)")
+    return virtual_pool_update.route(
+        lo, hi, t_lo, t_hi, log2w, salt_g=cfg.salt_g, salt_h=cfg.salt_h, salt_pool=salt_pool,
+        m=m_v, pool_size=pool_size, r_min=cfg.r_min, r_max=cfg.r_max,
     )
 
 

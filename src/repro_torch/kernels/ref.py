@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels K1–K4, K6 and K7, operand for operand.
+"""Plain PyTorch versions of the kernels K1–K8, operand for operand.
 
 Each function computes what its CUDA kernel computes, on the same operands,
 with PyTorch tensor ops. The wrappers run them for CPU tensors; the tests
@@ -45,6 +45,37 @@ def sketch_array_update_ref(lo, hi, log2w, keys, regs, *, salt: int, r_min: int,
     y = _y_table(lo, hi, log2w, m, salt=salt, r_min=r_min, r_max=r_max).to(torch.int32)
     rows = torch.clamp(keys, 0, k - 1)[:, None].expand(-1, m)
     return regs.to(torch.int32).scatter_reduce(0, rows, y, "amax").to(torch.int8)
+
+
+def float_sketch_update_ref(lo, hi, w, regs, *, salt: int):
+    """K5: float32[m] min-registers folded with r_ij = (-ln u_ij) / w_i where
+    w_i > 0, else float32 max (masked rows carry w = -1; NaN fails the test).
+
+    lo/hi int64[B] id words, w float32[B], regs float32[m]. A true
+    division, as the kernel and the JAX package compute it.
+    """
+    if lo.shape[0] == 0:
+        return regs.clone()
+    j = torch.arange(regs.shape[0], dtype=torch.int64, device=lo.device)
+    e = hashing.neg_log_uniform((lo[:, None], hi[:, None], j[None, :]), salt)
+    big = torch.full((), estimators.F32_MAX, dtype=torch.float32, device=lo.device)
+    r = torch.where(w[:, None] > 0, e / w[:, None], big)
+    return torch.minimum(regs, r.amin(0))
+
+
+def virtual_pool_route_ref(lo, hi, t_lo, t_hi, log2w, *, salt_g: int, salt_h: int, salt_pool: int,
+                           m: int, pool_size: int, r_min: int, r_max: int):
+    """K8: (p int32[B], y int32[B]) per element: register choice
+    j = hash_mod((lo, hi), salt_g, m); y = min(floor(log2 w - log2(-ln u)),
+    r_max) with what is not finite set to r_min (QSketch-Dyn's y: no r_min
+    clip); pool slot p = hash_mod((t_lo, t_hi, j), salt_pool, pool_size).
+    All operands int64[B] id words and float32[B] log2 w."""
+    j = hashing.hash_mod((lo, hi), salt_g, m)
+    e = hashing.neg_log_uniform((lo, hi, j), salt_h)
+    y = torch.clamp(torch.floor(log2w - torch.log2(e)), max=float(r_max))
+    y = torch.where(torch.isfinite(y), y, torch.full_like(y, float(r_min)))
+    p = hashing.hash_mod((t_lo, t_hi, j), salt_pool, pool_size)
+    return p.to(torch.int32), y.to(torch.int32)
 
 
 def qdyn_qr_ref(w, hist, scales, m: int):

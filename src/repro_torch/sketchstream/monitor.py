@@ -14,6 +14,9 @@
 * ``DynArrayMonitor``: per-tenant weighted cardinality with O(1)-anytime
   reads — sparse 64-bit tenant ids through the key directory into a
   DynArray whose per-key martingales make ``estimate`` a pure O(K) read.
+* ``VirtualDynMonitor``: the same sparse-key surface where pinned hot
+  tenants keep dense rows and the long tail shares one register pool
+  (``core/virtual_dyn_array.py``, kernels K8 and K3 on the card).
 * ``WindowMonitor``: the same sparse-key surface over an epoch ring
   (``core/window_array.py``): estimates answer "weighted distinct traffic
   in the last w <= E epochs"; ``rotate`` advances the epoch clock and ages
@@ -34,12 +37,15 @@ from typing import NamedTuple
 import torch
 
 from ..core import (
-    dyn_array, estimation, estimators, key_directory, qsketch, sketch_array, window_array,
+    dyn_array, estimation, estimators, key_directory, qsketch, sketch_array, virtual_dyn_array,
+    window_array,
 )
 from ..core.key_directory import DirectoryConfig, DirectoryState
 from ..core.types import (
-    DynArrayState, QSketchState, SketchArrayState, SketchConfig, WindowArrayState, resolve_device,
+    DynArrayState, QSketchState, SketchArrayState, SketchConfig, VirtualDynArrayState,
+    WindowArrayState, resolve_device,
 )
+from ..core.virtual_dyn_array import VirtualConfig
 from ..obs import metrics as obs_metrics
 
 _M_TENANT_SEEN = obs_metrics.gauge(
@@ -62,6 +68,16 @@ _M_TENANT_WINDOW_EPOCH = obs_metrics.gauge(
     "tenant_window_epoch", "monotone epoch clock of the window ring",
     labels=("monitor",))
 
+_M_VIRTUAL_POOL_LOAD = obs_metrics.gauge(
+    "virtual_pool_load_factor", "fraction of shared-pool slots raised",
+    labels=("monitor",))
+_M_VIRTUAL_POOL_WEIGHT = obs_metrics.gauge(
+    "virtual_pool_weight_total", "exact total live tail weight in the pool",
+    labels=("monitor",))
+_M_VIRTUAL_TAIL_ELEMENTS = obs_metrics.gauge(
+    "virtual_tail_elements", "live tail element-occurrences folded",
+    labels=("monitor",))
+
 _TENANT_FAMILIES = {
     "tenant_elements_seen": _M_TENANT_SEEN,
     "tenant_slots_claimed": _M_TENANT_SLOTS,
@@ -69,6 +85,9 @@ _TENANT_FAMILIES = {
     "tenant_weight_total": _M_TENANT_WEIGHT,
     "tenant_window_weight": _M_TENANT_WINDOW_WEIGHT,
     "tenant_window_epoch": _M_TENANT_WINDOW_EPOCH,
+    "virtual_pool_load_factor": _M_VIRTUAL_POOL_LOAD,
+    "virtual_pool_weight_total": _M_VIRTUAL_POOL_WEIGHT,
+    "virtual_tail_elements": _M_VIRTUAL_TAIL_ELEMENTS,
 }
 
 
@@ -398,3 +417,91 @@ class WindowMonitor:
             tenant_window_weight=state.window.union_chats.sum(),
             tenant_window_epoch=state.window.epoch_id.clone(),  # the ring's is updated in place
         )
+
+
+class VirtualDynMonitorState(NamedTuple):
+    """State of a VirtualDynMonitor."""
+
+    array: VirtualDynArrayState  # shared pool + pinned dense hot rows
+    n_seen: torch.Tensor  # int32 live-element counter across all tenants
+
+
+class VirtualDynMonitor:
+    """Per-tenant telemetry where the long tail shares one register pool.
+
+    The ``DynArrayMonitor`` surface backed by ``core/virtual_dyn_array.py``:
+    the ``vcfg.pinned`` hot tenants keep dense Dyn rows (exact anytime
+    martingales), every other tenant hashes its registers into one shared
+    ``pool_size``-slot pool, so tail memory is O(pool) whatever the number
+    of tenants. Tail reads are noise-cancelled estimates with a resolution
+    floor of ``virtual_dyn_array.noise_floor``.
+
+    Two deltas against the dense monitors, both forced by pooling:
+    ``estimate(state, tenant_keys)`` takes the tenants to read (the tail is
+    a hash range, not an enumerable axis), and no directory telemetry
+    threads through (``metrics()`` reports pool pressure instead).
+    ``promote`` returns a NEW (monitor, state) pair. ``update`` changes the
+    state's tensors in place. The instance is configuration (and the
+    device); all mutable data lives in ``VirtualDynMonitorState``.
+    """
+
+    def __init__(self, cfg: SketchConfig, vcfg: VirtualConfig, device="cuda"):
+        self.cfg = cfg
+        self.vcfg = vcfg
+        self.device = resolve_device(device)
+
+    @classmethod
+    def for_pool(cls, cfg: SketchConfig, pool_size: int, *, pinned: tuple = (),
+                 m_virtual: int | None = None, seed: int | None = None, device="cuda"):
+        """Build with a fresh virtual config of ``pool_size`` slots."""
+        vcfg = VirtualConfig(pool_size=pool_size, m_virtual=m_virtual, pinned=pinned,
+                             seed=cfg.seed if seed is None else seed)
+        return cls(cfg, vcfg, device)
+
+    def init(self) -> VirtualDynMonitorState:
+        """Fresh pool + empty hot rows, zero elements seen."""
+        return VirtualDynMonitorState(
+            array=virtual_dyn_array.init(self.cfg, self.vcfg, self.device),
+            n_seen=torch.zeros((), dtype=torch.int32, device=self.device),
+        )
+
+    def update(self, state: VirtualDynMonitorState, tenant_keys, ids, weights=None, mask=None) -> VirtualDynMonitorState:
+        """Fold a keyed batch: tenant_keys are sparse ids (an integer tensor
+        or a (lo, hi) pair), flattened together with ids/weights/mask."""
+        keys = _flatten_keys(tenant_keys)
+        ids, w, mask, n_live = _flatten(ids, weights, mask)
+        st = virtual_dyn_array.update_tenants(self.cfg, self.vcfg, state.array, keys, ids, w, mask=mask)
+        return VirtualDynMonitorState(array=st, n_seen=state.n_seen + n_live)
+
+    def estimate(self, state: VirtualDynMonitorState, tenant_keys) -> torch.Tensor:
+        """Ŵ[T] for the QUERIED tenants: exact martingale reads for pinned
+        tenants, noise-cancelled virtual reads for the tail."""
+        return virtual_dyn_array.estimate_tenants(self.cfg, self.vcfg, state.array, _flatten_keys(tenant_keys))
+
+    def merge(self, a: VirtualDynMonitorState, b: VirtualDynMonitorState) -> VirtualDynMonitorState:
+        """Cross-pod union: pool max + hot-tier dense merge."""
+        return VirtualDynMonitorState(
+            array=virtual_dyn_array.merge(self.cfg, self.vcfg, a.array, b.array),
+            n_seen=a.n_seen + b.n_seen,
+        )
+
+    def promote(self, state: VirtualDynMonitorState, tenant, *, migrate: bool = False) -> tuple["VirtualDynMonitor", VirtualDynMonitorState]:
+        """Pin ``tenant`` into the hot tier: -> (monitor', state'); route new
+        traffic through the returned pair (``virtual_dyn_array.promote``)."""
+        vcfg, array = virtual_dyn_array.promote(self.cfg, self.vcfg, state.array, tenant, migrate=migrate)
+        return (VirtualDynMonitor(self.cfg, vcfg, self.device),
+                VirtualDynMonitorState(array=array, n_seen=state.n_seen))
+
+    def metrics(self, state: VirtualDynMonitorState) -> dict:
+        """Cheap per-step scalars (no solve): stream counter, pool pressure
+        (load factor, exact pooled weight, tail occurrences) and the hot
+        tier's total tracked weight, in the JAX package's key order."""
+        out = {
+            "tenant_elements_seen": state.n_seen,
+            "virtual_pool_load_factor": virtual_dyn_array.pool_load_factor(state.array),
+            "virtual_pool_weight_total": state.array.w_tail,
+            "virtual_tail_elements": state.array.n_tail,
+            "tenant_weight_total": state.array.hot.chats.sum(),
+        }
+        publish_tenant_metrics("virtual_dyn", out)
+        return out

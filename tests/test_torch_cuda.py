@@ -1,7 +1,8 @@
-"""K1–K4, K6 and K7 on the card against their plain PyTorch versions, and
-the port's paths (the DynArray main path, the per-key SketchArray monitor,
-the sliding-window monitor) on the card against their CPU paths, and the
-``examples/windowed_alerts.py`` scenario on the card.
+"""K1–K8 on the card against their plain PyTorch versions, and the port's
+paths (the DynArray main path, the per-key SketchArray monitor, the
+sliding-window monitor) on the card against their CPU paths, and the
+scenarios of ``examples/windowed_alerts.py``, ``examples/quickstart.py``
+(the five METHODS) and ``examples/virtual_tenants.py`` on the card.
 
 Marked ``cuda``: each test skips when ``torch.cuda.is_available()`` is
 False. This file imports nothing of JAX, so it runs on a GPU host without
@@ -9,10 +10,12 @@ JAX: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
 tests/test_torch_cuda.py`` (``--noconftest``: ``tests/conftest.py`` imports
 jax).
 
-Tolerances: registers, histograms and the directory bit for bit (K1's and
-K6's y use the same logf/log2f as PyTorch's CUDA ops); q_R to an absolute
-1e-6; K4, chats and MLE reads to rtol 1e-5, atol 1e-6 (float32 sums in
-another order).
+Tolerances: registers, histograms, pools and the directory bit for bit
+(K1's, K5's, K6's and K8's hashes and logs are PyTorch's CUDA ops'
+arithmetic); q_R to an absolute 1e-6; K4, chats, ``w_tail`` and MLE reads
+to rtol 1e-5, atol 1e-6 (float32 sums in another order); float
+min-registers of the card against the CPU path to rtol 1e-6 (-ln u differs
+by an ulp between the two devices' logs) and 1e-5 after FastGM's cumsum.
 """
 
 import numpy as np
@@ -20,8 +23,10 @@ import pytest
 import torch
 
 from repro_torch.core import (
-    SketchConfig, dyn_array, key_directory, qsketch, qsketch_dyn, sketch_array,
+    METHODS, SketchConfig, baselines, dyn_array, estimation, estimators, key_directory, qsketch,
+    qsketch_dyn, sketch_array,
 )
+from repro_torch.core import virtual_dyn_array as vda
 from repro_torch.kernels import ops, ref
 from repro_torch.sketchstream import monitor
 
@@ -259,3 +264,158 @@ def test_windowed_alerts_scenario_on_card(dev):
     assert not false_positive, "a baseline tenant alerted"
     assert int(st.n_seen) == n_epochs * packets + spike_packets
     assert ops.launch_counts()["dyn_array_update"] > 0
+
+
+@pytest.mark.parametrize("m", [256, 1024, 130])
+def test_k5_kernel_matches_plain(dev, m):
+    """Rows with w <= 0 or NaN (masked rows arrive as w = -1) are no-ops."""
+    cfg = SketchConfig(m=m, b=8, seed=m)
+    regs = baselines.init(cfg, device="cuda").regs
+    for seed in range(3):
+        ids, w, mask = _stream(5000, 30 + seed)
+        w[1::23] = float("nan")
+        w = torch.where(mask, w, torch.full_like(w, -1.0))
+        lo, hi = (ids & 0xFFFFFFFF).to(dev), (ids >> 32).to(dev)
+        want = ref.float_sketch_update_ref(lo, hi, w.to(dev), regs, salt=cfg.salt_h)
+        got = ops.float_sketch_update_op(cfg, regs, lo, hi, w.to(dev))
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        regs = got
+    assert (regs < estimators.F32_MAX).all()
+
+
+@pytest.mark.parametrize("m_v", [256, 96])
+def test_k8_kernel_matches_plain(dev, m_v):
+    cfg = SketchConfig(m=256, b=8, seed=3)
+    rng = np.random.default_rng(m_v)
+    n = 100_000
+    lo, hi, t_lo, t_hi = (torch.from_numpy(rng.integers(0, 2**32, n)).to(dev) for _ in range(4))
+    w = rng.gamma(1.0, 2.0, n).astype(np.float32) * np.float32(10.0) ** rng.integers(-30, 30, n)
+    w[::13], w[5::17], w[7::19], w[9::23] = 0.0, -1.0, np.nan, np.inf
+    with np.errstate(divide="ignore", invalid="ignore"):
+        log2w = torch.from_numpy(np.log2(w).astype(np.float32)).to(dev)
+    args = dict(salt_g=cfg.salt_g, salt_h=cfg.salt_h, salt_pool=12345, m=m_v, pool_size=2**26,
+                r_min=cfg.r_min, r_max=cfg.r_max)
+    want = ref.virtual_pool_route_ref(lo, hi, t_lo, t_hi, log2w, **args)
+    got = ops.virtual_pool_route_op(cfg, m_v, 12345, 2**26, lo, hi, t_lo, t_hi, log2w)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int(got[1].min()) == cfg.r_min and int(got[1].max()) == cfg.r_max
+
+
+def test_quickstart_scenario_on_card_matches_cpu(dev):
+    """``examples/quickstart.py``'s five METHODS on the card and on the CPU:
+    K1, K2 and K5 launch; QSketch and QSketch-Dyn registers equal, float
+    min-registers and estimates close."""
+    from repro_torch.data import synthetic
+
+    ids, weights, true_c = synthetic.with_repeats("gamma", 8_000, 40_000, seed=0)
+    cfg = SketchConfig(m=1024, b=8, seed=42)
+    ops.reset_launch_counts()
+    for name, meth in METHODS.items():
+        out = {}
+        for d in ("cpu", "cuda"):
+            st = meth["init"](cfg, device=d)
+            for i in range(0, len(ids), 8192):
+                st = meth["update"](cfg, st, torch.from_numpy(ids[i:i + 8192].astype(np.int64)).to(d),
+                                    torch.from_numpy(weights[i:i + 8192]).to(d))
+            out[d] = (st, float(meth["estimate"](cfg, st)))
+        (a, ea), (b, eb) = out["cpu"], out["cuda"]
+        if name in ("QSketch", "QSketch-Dyn"):
+            torch.testing.assert_close(b.regs.cpu(), a.regs, rtol=0, atol=0)
+        else:
+            torch.testing.assert_close(b.regs.cpu(), a.regs, rtol=1e-6 if name == "LM" else 1e-5, atol=0)
+        assert abs(eb - ea) <= 1e-5 * abs(ea), (name, ea, eb)
+        assert abs(eb - true_c) / true_c < 0.2, name
+    counts = ops.launch_counts()
+    assert all(counts[k] > 0 for k in ("qsketch_update", "qdyn_qr", "float_sketch_update")), counts
+
+
+def _grid_flips(tcfg, rows, chat_d, chat_c):
+    """Rows whose virtual row solve differs between the card (``chat_d``)
+    and the CPU (``chat_c``) beyond rtol 1e-5, and whether each is a near
+    tie of the grid argmax: the float64 log-likelihood margin between the
+    two final grid points is within twice the float32 rounding of the
+    likelihood there on the two devices."""
+    off = torch.nonzero((chat_d - chat_c).abs() > 1e-5 * chat_c.abs() + 1e-6)[:, 0]
+    if not off.numel():
+        return off, torch.ones((0,), dtype=torch.bool)
+    hd = estimators.histograms(tcfg, rows[off.to(rows.device)])
+    h64 = hd.cpu()
+    lam64 = torch.log(tcfg.m / torch.clamp(h64[:, 0].double(), min=0.5))
+    grid64 = torch.stack([torch.round(32 * torch.log2(c[off].double() / (tcfg.m * lam64))) / 32
+                          for c in (chat_d, chat_c)], 1)
+    ll64 = estimation._virtual_loglik(tcfg, h64, lam64, grid64)
+    err = torch.zeros(off.numel(), dtype=torch.float64)
+    for h in (hd, h64):
+        t0 = h[:, 0].to(torch.float32)
+        lam = torch.log(torch.full_like(t0, float(tcfg.m)) / torch.clamp(t0, min=0.5))
+        ll = estimation._virtual_loglik(tcfg, h, lam, grid64.to(h.device, torch.float32))
+        err += (ll.cpu().double() - ll64).abs().max(1).values
+    return off, (ll64[:, 0] - ll64[:, 1]).abs() <= 2 * err
+
+
+def test_virtual_tenants_scenario_on_card_matches_cpu(dev):
+    """``examples/virtual_tenants.py`` on the card and on the CPU: K8 and K3
+    launch; pool, pool histogram, counters and hot rows equal (w_tail and
+    chats to rtol 1e-5); the reads within the example's accuracy; the
+    promotion of rank 32 reads its 4096 fresh events."""
+    cfg = SketchConfig(m=128, b=8, seed=3)
+    n_tenants, n_pin, pool_size = 2048, 32, 2**16
+    rng = np.random.default_rng(7)
+    tenant_ids = rng.integers(0, 2**63, n_tenants, dtype=np.uint64)
+    sizes = np.maximum(6000.0 / np.arange(1, n_tenants + 1) ** 1.05, 8).astype(int)
+    tidx = np.repeat(np.arange(n_tenants), sizes)
+    rng.shuffle(tidx)
+    n = tidx.shape[0]
+    ids = rng.permutation(np.arange(n, dtype=np.int64))
+    w = rng.uniform(0.5, 1.5, n).astype(np.float32)
+    truth = np.zeros(n_tenants)
+    np.add.at(truth, tidx, w)
+    pinned = tuple(int(t) for t in tenant_ids[:n_pin])
+    mons, sts, ests = {}, {}, {}
+    ops.reset_launch_counts()
+    for d in ("cpu", "cuda"):
+        mon = monitor.VirtualDynMonitor.for_pool(cfg, pool_size, pinned=pinned, device=d)
+        st = mon.init()
+        for lo in range(0, n, 8192):
+            sl = slice(lo, min(lo + 8192, n))
+            st = mon.update(st, key_directory.split_uint64(tenant_ids[tidx[sl]], d),
+                            torch.from_numpy(ids[sl]).to(d), torch.from_numpy(w[sl]).to(d))
+        mons[d], sts[d] = mon, st
+        ests[d] = mon.estimate(st, key_directory.split_uint64(tenant_ids, d)).cpu().numpy()
+    counts = ops.launch_counts()
+    assert counts["virtual_pool_route"] > 0 and counts["dyn_array_update"] > 0, counts
+    a, b = sts["cpu"].array, sts["cuda"].array
+    for name in ("pool", "pool_hist", "n_tail"):
+        torch.testing.assert_close(getattr(b, name).cpu(), getattr(a, name), rtol=0, atol=0)
+    for name in ("regs", "hists"):
+        torch.testing.assert_close(getattr(b.hot, name).cpu(), getattr(a.hot, name), rtol=0, atol=0)
+    torch.testing.assert_close(b.hot.chats.cpu(), a.hot.chats, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(b.w_tail.cpu(), a.w_tail, rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ests["cuda"][:n_pin], ests["cpu"][:n_pin], rtol=1e-5, atol=1e-6)
+    # The tail read's stages on the card against the CPU: the row solves on
+    # the same gathered registers, then the pool calibration. A row whose
+    # grid argmax flips between the two devices must be a near tie.
+    vcfg = mons["cuda"].vcfg
+    rows = vda.virtual_rows(cfg, vcfg, b, *key_directory.split_uint64(tenant_ids[n_pin:], dev))
+    tcfg = vda.tail_config(cfg, vcfg)
+    chat_d = estimation.estimate_rows_virtual(tcfg, rows).cpu()
+    chat_c = estimation.estimate_rows_virtual(tcfg, rows.cpu())
+    off, ties = _grid_flips(tcfg, rows, chat_d, chat_c)
+    assert bool(ties.all()), [(int(r), float(chat_d[r]), float(chat_c[r])) for r in off]
+    keep = torch.ones_like(chat_c, dtype=torch.bool)
+    keep[off] = False
+    torch.testing.assert_close(chat_d[keep], chat_c[keep], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(float(vda.pool_calibration(cfg, vcfg, b)),
+                               float(vda.pool_calibration(cfg, mons["cpu"].vcfg, a)), rtol=1e-5)
+    floor = float(vda.noise_floor(cfg, vcfg, b))
+    rel = np.abs(ests["cuda"] - truth) / truth
+    tail_above = (truth >= 2 * floor) & (np.arange(n_tenants) >= n_pin)
+    assert rel[:n_pin].mean() < 0.1 and tail_above.sum() > 0 and rel[tail_above].mean() < 0.5
+    riser = int(tenant_ids[n_pin])
+    mon, st = mons["cuda"].promote(sts["cuda"], riser)
+    w2 = rng.uniform(0.5, 1.5, 4096).astype(np.float32)
+    st = mon.update(st, key_directory.split_uint64(np.full(4096, riser, np.uint64), dev),
+                    torch.arange(n, n + 4096, device=dev), torch.from_numpy(w2).to(dev))
+    resumed = float(mon.estimate(st, key_directory.split_uint64([riser], dev))[0])
+    assert abs(resumed - w2.sum()) / w2.sum() < 0.2

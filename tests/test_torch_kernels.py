@@ -216,12 +216,17 @@ def test_fronts_reject_bad_operands():
 
 def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch):
     """Without a GPU an entry point raises unless given device="cpu"."""
-    from repro_torch.core import dyn_array, qsketch_dyn, sketch_array, window_array
+    from repro_torch.core import (
+        VirtualConfig, baselines, dyn_array, qsketch_dyn, sketch_array, virtual_dyn_array, window_array,
+    )
     from repro_torch.sketchstream import anomaly, monitor
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = SketchConfig(m=64)
     for make in (
+        lambda: baselines.init(cfg),
+        lambda: virtual_dyn_array.init(cfg, VirtualConfig(pool_size=1024)),
+        lambda: monitor.VirtualDynMonitor.for_pool(cfg, 1024),
         lambda: sketch_array.init(cfg, 4),
         lambda: window_array.init(cfg, 4, 2),
         lambda: monitor.init_array(cfg, 4),
@@ -240,7 +245,7 @@ def test_entry_points_refuse_cuda_without_a_gpu(monkeypatch):
 
 def test_launch_counts_stay_zero_on_cpu():
     """CPU tensors take the plain versions: no kernel is launched."""
-    from repro_torch.core import sketch_array, window_array
+    from repro_torch.core import VirtualConfig, baselines, sketch_array, virtual_dyn_array, window_array
 
     ops.reset_launch_counts()
     cfg = SketchConfig(m=64)
@@ -251,7 +256,12 @@ def test_launch_counts_stay_zero_on_cpu():
     sketch_array.update(cfg, sa, torch.tensor([0, 2]), torch.arange(2), torch.ones(2))
     ring = window_array.init(cfg, 3, 2, device="cpu")
     window_array.estimate_window(cfg, ring, 1)
+    baselines.lm_update(cfg, baselines.init(cfg, device="cpu"), torch.arange(10), torch.ones(10))
+    vcfg = VirtualConfig(pool_size=1024, pinned=(3,))
+    virtual_dyn_array.update_tenants(cfg, vcfg, virtual_dyn_array.init(cfg, vcfg, device="cpu"),
+                                     torch.tensor([3, 5]), torch.arange(2), torch.ones(2))
     assert set(ops.launch_counts()) == {
-        "qsketch_update", "qdyn_qr", "dyn_array_update", "estimate", "sketch_array_update", "window_union",
+        "qsketch_update", "qdyn_qr", "dyn_array_update", "estimate", "float_sketch_update",
+        "sketch_array_update", "window_union", "virtual_pool_route",
     }
     assert all(v == 0 for v in ops.launch_counts().values())
